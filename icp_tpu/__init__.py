@@ -1,4 +1,4 @@
-"""icp_tpu — TPU-native point-cloud registration and SLAM engine.
+"""icp_tpu — point-cloud registration and SLAM engine in JAX (GPU-first).
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of the reference
 C++/CUDA ICP project (`yassram/iterative-closest-point`); see SURVEY.md for

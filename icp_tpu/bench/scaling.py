@@ -3,8 +3,8 @@
 BASELINE.json config 4: "Synthetic 1M+ point clouds, scene points sharded
 across chips with all-gather NN search" — target >=80% weak-scaling
 efficiency.  On a CPU host this runs against the virtual 8-device mesh (the
-testing story for multi-chip, SURVEY.md §4d); on a pod slice it runs over the
-real ICI mesh.  Emits one JSON line per (devices, points) cell.
+testing story for multi-device, SURVEY.md §4d); on a multi-GPU host it runs
+over the real cards.  Emits one JSON line per (devices, points) cell.
 
 Weak scaling: points per device held constant; perfect scaling = constant
 wall time as devices grow.  Efficiency = t(1 device) / t(n devices).
@@ -68,17 +68,17 @@ def run_cell(
         max_iter=n_iters,
         threshold=0.0,  # run all iterations (throughput measurement)
         dtype=jnp.float32,
-        solver="qcp_fused" if jax.default_backend() == "tpu" else "eigh",
+        solver="auto",
         validate_inputs=False,
     )
     # warm + compile
-    res = icp_sharded(model, scene, cfg, mesh=mesh, ring=ring)
-    float(res.err)
+    res = jax.block_until_ready(icp_sharded(model, scene, cfg, mesh=mesh,
+                                            ring=ring))
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        res = icp_sharded(model, scene, cfg, mesh=mesh, ring=ring)
-        float(res.err)
+        res = jax.block_until_ready(icp_sharded(model, scene, cfg, mesh=mesh,
+                                                ring=ring))
         best = min(best, time.perf_counter() - t0)
     return dict(
         devices=n_devices,
@@ -107,7 +107,9 @@ def main(argv=None) -> int:
         help="device counts to sweep (default: 1, 2, 4, ..., all)",
     )
     args = ap.parse_args(argv)
+    from icp_tpu.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     n_avail = len(jax.devices())
     counts = args.devices
     if not counts:

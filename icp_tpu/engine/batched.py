@@ -1,8 +1,8 @@
-"""Batched registration: many cloud pairs per chip, one program.
+"""Batched registration: many cloud pairs per device, one program.
 
 The production/serving shape of the problem (BASELINE.json's "frames/s"
 metric): registering a stream of frame pairs.  A single cow-sized pair
-underutilizes the chip; ``vmap`` over the pair axis amortizes every kernel
+underutilizes the device; ``vmap`` over the pair axis amortizes every kernel
 across the batch.  No reference counterpart (strictly one pair per process —
 and its input validation cannot even accept unequal-count pairs,
 ``src/cpu.cc:42-53``).
@@ -12,7 +12,7 @@ early-exit together; converged pairs simply keep re-solving — their transform
 is a fixed point, so results are unchanged).  For convergence-gated batches,
 run ``icp`` per pair instead.
 
-Unequal-count batches (round 5): ``scene_ns`` / ``model_ns`` give per-pair
+Unequal-count batches: ``scene_ns`` / ``model_ns`` give per-pair
 DYNAMIC valid-row counts for bucket-padded inputs (``ops/padding.py``) — the
 batch axis carries clouds of *different true sizes* padded to one static
 bucket shape, and a 4-pair scan chain becomes ONE batched program.
@@ -53,8 +53,8 @@ def icp_batched(
     nn_method: str = "bcast",
     with_scale: bool = True,
     reference_compat: bool = True,
-    scene_tile: int = 256,
-    model_tile: int = 4096,
+    scene_tile: int = 16,
+    model_tile: int = 64,
     trim_fraction: float = 0.0,
     scene_ns=None,  # (B,) per-pair dynamic valid scene rows (bucketed batch)
     model_ns=None,  # (B,) per-pair dynamic valid model rows

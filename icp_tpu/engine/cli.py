@@ -33,16 +33,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="icp",
         usage="icp [path_to_ref_cloud] [path_to_transform_cloud] [nb_iter]",
-        description="TPU-native ICP point-cloud registration",
+        description="ICP point-cloud registration",
     )
     p.add_argument("ref", help="reference (model) cloud CSV")
     p.add_argument("scene", help="cloud to transform CSV")
     p.add_argument("nb_iter", type=int, help="max iterations")
     p.add_argument("--threshold", type=float, default=1e-5)
     p.add_argument("--solver", default="auto",
-                   choices=["auto", "eigh", "qcp", "qcp_fused", "kabsch"])
+                   choices=["auto", "eigh", "qcp", "kabsch"])
     p.add_argument("--nn", default="auto",
-                   choices=["auto", "bcast", "matmul", "pallas", "grid"])
+                   choices=["auto", "bcast", "matmul", "blocked", "pallas",
+                            "grid"])
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     p.add_argument("--no-scale", action="store_true", help="rigid (SE3) alignment")
     p.add_argument("--trim", type=float, default=0.0, metavar="FRAC",
@@ -71,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "error trace, iters, wall time, backend/op config)")
     p.add_argument("--metrics-ops", action="store_true",
                    help="with --metrics: also measure the per-iteration "
-                        "correspondence/alignment device-time split "
-                        "(amortized protocol; adds benchmark time)")
+                        "correspondence/alignment time split "
+                        "(adds benchmark time)")
     return p
 
 
@@ -91,7 +92,9 @@ def main(argv=None) -> int:
         # and the oracle-parity guarantees of the f64 path evaporate.  Enable
         # it before any array touches the backend.
         jax.config.update("jax_enable_x64", True)
+    from icp_tpu.utils.cache import enable_compile_cache
 
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from icp_tpu.config import ICPConfig

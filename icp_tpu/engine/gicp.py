@@ -1,5 +1,5 @@
 """Generalized-ICP (plane-to-plane) — Segal et al.'s covariance-weighted
-registration, TPU-native.
+registration.
 
 Each point carries a disk covariance ``C = I - (1 - eps) n n^T`` (large in the
 local tangent plane, ``eps`` along the normal).  The per-correspondence
@@ -9,7 +9,7 @@ Point-to-point and point-to-plane are the ``eps -> 1`` and ``eps -> 0``
 limits; GICP interpolates and is the most accurate of the three on real scan
 pairs.  No reference counterpart.
 
-TPU-native choices: batched closed-form 3x3 inverses (adjugate / det —
+Design: batched closed-form 3x3 inverses (adjugate / det —
 branchless, no LAPACK), one einsum pass for the 6x6 system (psum-able),
 Rodrigues update — the same building blocks as ``point_to_plane.py``.
 """
@@ -22,7 +22,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from icp_tpu.config import ICPConfig
+from icp_tpu.config import ICPConfig, kernel_interpret
 from icp_tpu.engine.icp import ICPResult, ICPTrace, _validate
 from icp_tpu.engine.point_to_plane import _rodrigues
 from icp_tpu.ops.alignment import Similarity
@@ -220,9 +220,8 @@ def _gicp_grid(
 
     The model covariance is a pure function of the model normal
     (``disk_covariances``: I - (1-eps) n n^T), so only the NORMAL rides the
-    kd tiles' spare sublanes and the winning covariance is recomputed on the
-    fly from the kernel-emitted normal — the hot loop stays gather-free with
-    no extra payload DMA.  Culling bound ``u`` is the Euclidean residual
+    grid as payload and the winning covariance is recomputed on the fly
+    from the matched normal.  Culling bound ``u`` is the Euclidean residual
     (the Mahalanobis error does not bound the NN distance).
     """
     from icp_tpu.engine.grid import _prepare_scene
@@ -236,7 +235,7 @@ def _gicp_grid(
 
     _BIG = 3.0e38
     dt = scene.dtype
-    interp = jax.default_backend() != "tpu"
+    interp = kernel_interpret()
     n = scene.shape[0]
     from icp_tpu.engine.icp import _bucket_prologue
 
@@ -348,13 +347,12 @@ def icp_generalized(
     if scene_normals is None:
         scene_normals = estimate_normals(scene, k=normal_k)
     cov_s = disk_covariances(jnp.asarray(scene_normals, cfg.dtype), eps)
-    backend = jax.default_backend()
     if scene_n is not None:
         scene_n = jnp.asarray(scene_n, jnp.int32)
     if model_n is not None:
         model_n = jnp.asarray(model_n, jnp.int32)
     n_points = max(model.shape[0], scene.shape[0])
-    if cfg.resolved_nn_method(backend, n_points) == "grid":
+    if cfg.resolved_nn_method(n_points=n_points) == "grid":
         return _gicp_grid(
             model,
             jnp.asarray(model_normals, jnp.float32),
@@ -380,7 +378,7 @@ def icp_generalized(
         cov_s,
         jnp.asarray(cfg.threshold, cfg.dtype),
         max_iter=cfg.max_iter,
-        nn_method=cfg.resolved_nn_method(backend, n_points),
+        nn_method=cfg.resolved_nn_method(n_points=n_points),
         scene_tile=cfg.scene_tile,
         model_tile=cfg.model_tile,
         trim_fraction=cfg.trim_fraction,
@@ -418,7 +416,7 @@ def icp_generalized_sharded(
     from icp_tpu.parallel.mesh import make_mesh
 
     if (config or ICPConfig()).resolved_nn_method(
-            jax.default_backend(), max(len(model), len(scene))) == "grid":
+            n_points=max(len(model), len(scene))) == "grid":
         from icp_tpu.parallel.sharded_grid import gn_sharded_grid
 
         return gn_sharded_grid(
@@ -485,8 +483,7 @@ def icp_generalized_sharded(
     max_iter = cfg.max_iter
     trim_fraction = cfg.trim_fraction
     threshold = jnp.asarray(cfg.threshold, cfg.dtype)
-    backend = jax.default_backend()
-    nn_impl = "pallas" if cfg.resolved_nn_method(backend) == "pallas" else "jnp"
+    nn_impl = "pallas" if cfg.resolved_nn_method() == "pallas" else "jnp"
 
     @functools.partial(jax.jit, static_argnames=())
     def run(m_loc, cm_loc, p_loc, cs_loc, w_loc):

@@ -10,15 +10,14 @@ Same outer loop as ``engine/icp.py`` (one jitted ``lax.while_loop``; reference
     to its previous matched point (computed as a byproduct of the error
     term), which upper-bounds its current NN distance and lets the work-list
     kernel cull model tiles (exact; overflowing tiles fold everything).
-    Carrying the bound VALUE rather than the matched index keeps row gathers
-    out of the loop (~440 us each at horse scale, measured); the matched
-    points themselves come straight out of the NN kernel;
+    Carrying the bound VALUE rather than the matched index saves a gather
+    per iteration;
   * the cloud is padded to the kd tile multiple by replicating the last
     point; padded rows ride along with weight 0 (masked out of the alignment
     stats, the error, and the trim quantile).
 
-The alignment solve, fused scalar-core kernel, trim, and QUIRK-1 error
-metric are shared with the dense engine.
+The alignment solve, trim, and QUIRK-1 error metric are shared with the
+dense engine.
 """
 
 from __future__ import annotations
@@ -41,7 +40,7 @@ from icp_tpu.kernels.nn_grid import (
     next_bound,
 )
 from icp_tpu.ops.alignment import alignment_from_stats, compute_alignment_stats
-from icp_tpu.ops.transform import apply_similarity, compose, identity_similarity
+from icp_tpu.ops.transform import apply_similarity, compose
 
 _BIG = 3.0e38
 
@@ -79,7 +78,6 @@ def _grid_step_fn(grid: ModelGrid, w, *, solver: str, with_scale: bool,
                   max_candidates: int, interp: bool):
     """One grid-pruned ICP iteration: (p, state, u_prev) ->
     (p_new, state', err, u_next)."""
-    fused = solver == "qcp_fused"
 
     def step(p, state, u_prev):
         _, y, _, d2 = closest_point_indices_grid(
@@ -90,8 +88,8 @@ def _grid_step_fn(grid: ModelGrid, w, *, solver: str, with_scale: bool,
         if trim_fraction > 0.0:
             # kernel d2 is f32; recompute in the engine dtype when wider so
             # the trim threshold matches the dense engine (up to the f32
-            # quantization of the kernel-emitted matched points y — the
-            # grid path's correspondences are f32-exact, not f64-exact)
+            # quantization of the matched points y — the grid path's
+            # correspondences are f32-exact, not f64-exact)
             if p.dtype != jnp.float32:
                 d2 = jnp.sum((y - p) ** 2, axis=1)
             from icp_tpu.ops.quantile import histogram_quantile
@@ -103,50 +101,21 @@ def _grid_step_fn(grid: ModelGrid, w, *, solver: str, with_scale: bool,
         else:
             w_eff = w
         stats = compute_alignment_stats(p, y, weights=w_eff)
-        if fused:
-            from icp_tpu.kernels.qcp_pallas import (
-                alignment_step_state_pallas,
-                pack_stats,
-                unpack_state,
-            )
-
-            new_state = alignment_step_state_pallas(
-                pack_stats(stats), state, with_scale=with_scale,
-                interpret=interp,
-            )
-            sim, _, err_sum = unpack_state(new_state)
-            p_new = apply_similarity(p, sim)
-        else:
-            sim = alignment_from_stats(stats, solver=solver,
-                                       with_scale=with_scale)
-            new_state = compose(state, sim)
-            p_new = apply_similarity(p, sim)
-            d = y - p_new
-            d2_new = jnp.sum(d * d, axis=1)
-            err_sum = jnp.sum(w_eff * d2_new)
+        sim = alignment_from_stats(stats, solver=solver,
+                                   with_scale=with_scale)
+        new_state = compose(state, sim)
+        p_new = apply_similarity(p, sim)
+        d = y - p_new
+        err_sum = jnp.sum(w_eff * jnp.sum(d * d, axis=1))
         n_eff = stats.n.astype(err_sum.dtype)
         err = (2.0 * err_sum / n_eff) if reference_compat else (err_sum / n_eff)
         # next iteration's culling bounds: distance to this iteration's
         # match after the transform — a model point, hence a valid upper
         # bound on the new NN distance.  No gather needed.  Computed from
-        # the f32-cast pair (NOT d2_new downcast) — see next_bound.
+        # the f32-cast pair (NOT the residual downcast) — see next_bound.
         return p_new, new_state, err, next_bound(y, p_new)
 
     return step
-
-
-def _init_state(solver: str, dt, init_sim=None):
-    # shared with the dense engine (engine/icp.py); the grid engine is
-    # fused whenever the solver is
-    from icp_tpu.engine.icp import _init_transform_state
-
-    return _init_transform_state(solver == "qcp_fused", dt, init_sim)
-
-
-def _finish_state(state, solver: str):
-    from icp_tpu.engine.icp import _finish_transform_state
-
-    return _finish_transform_state(state, solver == "qcp_fused")
 
 
 _STATICS = (
@@ -185,10 +154,11 @@ def _icp_grid(
     scene_n=None,  # dynamic bucket-padding valid counts (ops/padding.py)
     model_n=None,
 ):
+    from icp_tpu.config import kernel_interpret
+    from icp_tpu.engine.icp import _bucket_prologue, _init_transform_state
+
     dt = scene.dtype
-    interp = jax.default_backend() != "tpu"
-    n = scene.shape[0]
-    from icp_tpu.engine.icp import _bucket_prologue
+    interp = kernel_interpret()
 
     model, scene, _ = _bucket_prologue(model, scene, scene_n, model_n)
     if init_sim is not None:
@@ -210,7 +180,7 @@ def _icp_grid(
         tn=tn, max_candidates=max_candidates, interp=interp,
     )
 
-    state0 = _init_state(solver, dt, init_sim)
+    state0 = _init_transform_state(dt, init_sim)
     err0 = jnp.asarray(jnp.inf, dt)
     it0 = jnp.asarray(0, jnp.int32)
 
@@ -267,7 +237,7 @@ def _icp_grid(
 
     result = ICPResult(
         points=p[inv_slots],
-        transform=_finish_state(state, solver),
+        transform=state,
         err=err,
         iters=it,
     )

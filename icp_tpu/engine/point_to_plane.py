@@ -6,8 +6,8 @@ far fewer iterations on smooth surfaces and tolerates sliding contact — the
 standard choice in real scan-matching pipelines.  No reference counterpart
 (the reference is point-to-point only; SURVEY.md §2).
 
-TPU-native structure mirrors the point-to-point engine:
-  * correspondence via the same fused NN kernels (indices gather model points
+Structure mirrors the point-to-point engine:
+  * correspondence via the same NN paths (indices gather model points
     AND their precomputed normals);
   * the Gauss-Newton normal equations ``A x = b`` over the 6-vector
     ``x = [omega, t]`` (small-angle rotation + translation) are plain sums of
@@ -27,7 +27,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from icp_tpu.config import ICPConfig
+from icp_tpu.config import ICPConfig, kernel_interpret
 from icp_tpu.engine.icp import ICPResult, ICPTrace, _validate
 from icp_tpu.ops.alignment import Similarity
 from icp_tpu.ops.distance import closest_point_indices
@@ -48,7 +48,8 @@ def _rodrigues(omega: jax.Array) -> jax.Array:
         dt,
     )
     s, c = jnp.sin(theta), jnp.cos(theta)
-    R = jnp.eye(3, dtype=dt) + s * K + (1.0 - c) * (K @ K)
+    KK = jnp.matmul(K, K, precision=jax.lax.Precision.HIGHEST)
+    R = jnp.eye(3, dtype=dt) + s * K + (1.0 - c) * KK
     # theta ~ 0: R -> I (the formula above is already stable there thanks to
     # the clamped theta, but guard the k = omega/theta division artifact)
     return jnp.where(theta < 1e-12, jnp.eye(3, dtype=dt), R)
@@ -115,10 +116,10 @@ def _icp_p2pl_grid(
 ):
     """Grid-pruned point-to-plane loop (``nn_method="grid"``).
 
-    The model normals are packed into the kd tiles' spare sublanes
-    (3 coords + 1 index + 3 normal = 7 of the 8), so the work-list kernel
-    emits the winning (point, normal) pair directly — the whole loop is
-    gather-free, same as ``engine/grid.py``.  The culling bound ``u`` is the
+    The model normals ride the grid as its payload (``build_model_grid``),
+    and the winning (point, normal) pair is gathered by the index the
+    work-list kernel returns, same as ``engine/grid.py``.  The culling
+    bound ``u`` is the
     EUCLIDEAN residual ``||y - p_new||^2`` (the plane residual does not
     bound the NN distance).
     """
@@ -133,7 +134,7 @@ def _icp_p2pl_grid(
     )
 
     dt = scene.dtype
-    interp = jax.default_backend() != "tpu"
+    interp = kernel_interpret()
     model, scene, _ = _bucket_prologue(model, scene, scene_n, model_n)
     if init_sim is not None:
         scene = apply_similarity(scene, init_sim)
@@ -284,8 +285,8 @@ def icp_point_to_plane_sharded(
 
     cfg = config or ICPConfig()
     mesh = mesh or make_mesh()
-    if cfg.resolved_nn_method(jax.default_backend(),
-                              max(len(model), len(scene))) == "grid":
+    if cfg.resolved_nn_method(
+            n_points=max(len(model), len(scene))) == "grid":
         from icp_tpu.parallel.sharded_grid import gn_sharded_grid
 
         return gn_sharded_grid(
@@ -322,8 +323,7 @@ def icp_point_to_plane_sharded(
     max_iter = cfg.max_iter
     threshold = jnp.asarray(cfg.threshold, cfg.dtype)
     trim_fraction = cfg.trim_fraction
-    backend = jax.default_backend()
-    nn_impl = "pallas" if cfg.resolved_nn_method(backend) == "pallas" else "jnp"
+    nn_impl = "pallas" if cfg.resolved_nn_method() == "pallas" else "jnp"
 
     @functools.partial(jax.jit, static_argnames=())
     def run(m_loc, nrm_loc, p_loc, w_loc):
@@ -435,13 +435,12 @@ def icp_point_to_plane(
         normals = estimate_normals(model, k=normal_k)
     else:
         normals = jnp.asarray(normals, cfg.dtype)
-    backend = jax.default_backend()
     if scene_n is not None:
         scene_n = jnp.asarray(scene_n, jnp.int32)
     if model_n is not None:
         model_n = jnp.asarray(model_n, jnp.int32)
     n_points = max(model.shape[0], scene.shape[0])
-    if cfg.resolved_nn_method(backend, n_points) == "grid":
+    if cfg.resolved_nn_method(n_points=n_points) == "grid":
         return _icp_p2pl_grid(
             model,
             normals,
@@ -463,7 +462,7 @@ def icp_point_to_plane(
         scene,
         jnp.asarray(cfg.threshold, cfg.dtype),
         max_iter=cfg.max_iter,
-        nn_method=cfg.resolved_nn_method(backend, n_points),
+        nn_method=cfg.resolved_nn_method(n_points=n_points),
         scene_tile=cfg.scene_tile,
         model_tile=cfg.model_tile,
         trim_fraction=cfg.trim_fraction,

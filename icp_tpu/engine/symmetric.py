@@ -10,8 +10,8 @@ needing normals for BOTH clouds.  No reference counterpart (the reference is
 point-to-point only; SURVEY.md §2) — this extends the engine family the same
 way point-to-plane/GICP do.
 
-TPU-native structure (mirrors ``engine/point_to_plane.py``):
-  * correspondence via the same fused dense NN kernels;
+Structure (mirrors ``engine/point_to_plane.py``):
+  * correspondence via the same dense NN paths;
   * scene normals are estimated ONCE and carried through the jitted
     ``while_loop``, rotated alongside the points (exact for rigid motion —
     no per-iteration re-estimation);
@@ -35,7 +35,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from icp_tpu.config import ICPConfig
+from icp_tpu.config import ICPConfig, kernel_interpret
 from icp_tpu.engine.icp import ICPResult, ICPTrace, _validate
 from icp_tpu.engine.point_to_plane import _rodrigues
 from icp_tpu.ops.alignment import Similarity
@@ -82,10 +82,10 @@ def _sym_step(p, p_normals, model, model_normals, *, nn_method, scene_tile,
     R = _rodrigues(x[:3])
     t = x[3:]
     R2 = jnp.matmul(R, R, precision=jax.lax.Precision.HIGHEST)
-    t2 = R @ t
+    t2 = jnp.matmul(R, t, precision=jax.lax.Precision.HIGHEST)
     sim = Similarity(s=jnp.asarray(1.0, p.dtype), R=R2, t=t2)
     p_new = apply_similarity(p, sim)
-    n_new = p_normals @ R2.T  # normals co-rotate with the rigid motion
+    n_new = jnp.matmul(p_normals, R2.T, precision=jax.lax.Precision.HIGHEST)  # normals co-rotate with the rigid motion
 
     res = jnp.sum(n * (p_new - y), axis=1)
     if w is not None:
@@ -122,7 +122,8 @@ def _icp_sym_while(
     model, scene, scene_mask = _bucket_prologue(model, scene, scene_n, model_n)
     if init_sim is not None:
         scene = apply_similarity(scene, init_sim)
-        scene_normals = scene_normals @ init_sim.R.T
+        scene_normals = jnp.matmul(scene_normals, init_sim.R.T,
+                                   precision=jax.lax.Precision.HIGHEST)
 
     def cond(carry):
         _, _, _, err, it, _ = carry
@@ -176,12 +177,11 @@ def _icp_sym_grid(
     scene_n=None,  # dynamic bucket-padding valid counts (ops/padding.py)
     model_n=None,
 ):
-    """Grid-pruned symmetric loop (``nn_method="grid"`` — VERDICT r3 #2).
+    """Grid-pruned symmetric loop (``nn_method="grid"``).
 
-    Same kd-tile + DMA-work-list pruning as ``engine/point_to_plane.py``'s
-    grid path: the MODEL normals ride the kd tiles' spare payload sublanes
-    (3 coords + 1 index + 3 normal of the 8), so the work-list kernel emits
-    the winning (point, normal) pair and the loop is gather-free.  The
+    Same kd-tile work-list pruning as ``engine/point_to_plane.py``'s grid
+    path: the MODEL normals ride the grid as its payload and the winning
+    (point, normal) pair is gathered by the kernel's index.  The
     SCENE normals never enter the fold at all — each row's own normal is
     local — they are kd-permuted once alongside the points (the ``perm``
     that ``_prepare_scene`` returns exists exactly for such side data) and
@@ -200,13 +200,14 @@ def _icp_sym_grid(
     from icp_tpu.ops.quantile import histogram_quantile
 
     dt = scene.dtype
-    interp = jax.default_backend() != "tpu"
+    interp = kernel_interpret()
     from icp_tpu.engine.icp import _bucket_prologue
 
     model, scene, _ = _bucket_prologue(model, scene, scene_n, model_n)
     if init_sim is not None:
         scene = apply_similarity(scene, init_sim)
-        scene_normals = scene_normals @ init_sim.R.T
+        scene_normals = jnp.matmul(scene_normals, init_sim.R.T,
+                                   precision=jax.lax.Precision.HIGHEST)
 
     grid = build_model_grid(model, target_tile=model_tile_target,
                             payload=model_normals)
@@ -247,9 +248,10 @@ def _icp_sym_grid(
         x = -jnp.linalg.solve(A + 1e-9 * jnp.eye(6, dtype=dt), b)
         R = _rodrigues(x[:3])
         R2 = jnp.matmul(R, R, precision=jax.lax.Precision.HIGHEST)
-        sim = Similarity(s=jnp.asarray(1.0, dt), R=R2, t=R @ x[3:])
+        sim = Similarity(s=jnp.asarray(1.0, dt), R=R2,
+                         t=jnp.matmul(R, x[3:], precision=jax.lax.Precision.HIGHEST))
         p_new = apply_similarity(p, sim)
-        pn_new = pn @ R2.T
+        pn_new = jnp.matmul(pn, R2.T, precision=jax.lax.Precision.HIGHEST)
         err = jnp.sum(
             (jnp.sum(nsum * (p_new - y), axis=1) * w_eff) ** 2
         ) / jnp.sum(w_eff)
@@ -308,8 +310,8 @@ def icp_symmetric_sharded(
     from icp_tpu.parallel.sharded import _pad_rows, _ring_correspond
 
     cfg = config or ICPConfig()
-    if cfg.resolved_nn_method(jax.default_backend(),
-                              max(len(model), len(scene))) == "grid":
+    if cfg.resolved_nn_method(
+            n_points=max(len(model), len(scene))) == "grid":
         from icp_tpu.parallel.sharded_grid import gn_sharded_grid
 
         return gn_sharded_grid(
@@ -354,8 +356,7 @@ def icp_symmetric_sharded(
     max_iter = cfg.max_iter
     threshold = jnp.asarray(cfg.threshold, cfg.dtype)
     trim_fraction = cfg.trim_fraction
-    backend = jax.default_backend()
-    nn_impl = "pallas" if cfg.resolved_nn_method(backend) == "pallas" else "jnp"
+    nn_impl = "pallas" if cfg.resolved_nn_method() == "pallas" else "jnp"
 
     @jax.jit
     def run(m_loc, nrm_loc, p_loc, pn_loc, w_loc):
@@ -397,9 +398,10 @@ def icp_symmetric_sharded(
                 x = -jnp.linalg.solve(A + 1e-9 * jnp.eye(6, dtype=dt), b)
                 R = _rodrigues(x[:3])
                 R2 = jnp.matmul(R, R, precision=jax.lax.Precision.HIGHEST)
-                sim = Similarity(s=jnp.asarray(1.0, dt), R=R2, t=R @ x[3:])
+                sim = Similarity(s=jnp.asarray(1.0, dt), R=R2,
+                         t=jnp.matmul(R, x[3:], precision=jax.lax.Precision.HIGHEST))
                 p_new = apply_similarity(p, sim)
-                pn_new = pn @ R2.T
+                pn_new = jnp.matmul(pn, R2.T, precision=jax.lax.Precision.HIGHEST)
                 nw = jax.lax.psum(jnp.sum(w_eff), axis)
                 err = jax.lax.psum(
                     jnp.sum((jnp.sum(nsum * (p_new - y), axis=1) * w_eff) ** 2),
@@ -462,11 +464,11 @@ def icp_symmetric(
     optional warm-start ``Similarity`` (rotation part must be a pure
     rotation; the returned transform still maps the caller's scene).
 
-    All NN methods are supported: dense (``bcast``/``matmul``/``pallas``),
-    the approximate ``bf16`` MXU prefilter (passed through to
-    ``closest_point_indices`` like every other engine), and the kd-tile
-    ``grid`` path (``_icp_sym_grid`` — model normals ride the tile payload
-    sublanes, scene normals are kd-permuted side data).
+    All NN methods are supported: dense (``bcast``/``matmul``/``blocked``/
+    ``pallas``, passed through to ``closest_point_indices`` like every
+    other engine), and the kd-tile ``grid`` path (``_icp_sym_grid`` — model
+    normals ride the tile payload rows, scene normals are kd-permuted side
+    data).
 
     ``scene_n`` / ``model_n``: dynamic valid-row counts for bucket-padded
     clouds (``ops/padding.py``) — pad rows must be FAR sentinels
@@ -491,9 +493,8 @@ def icp_symmetric(
         scene_normals = estimate_normals(scene, k=normal_k)
     else:
         scene_normals = jnp.asarray(scene_normals, cfg.dtype)
-    backend = jax.default_backend()
-    nn_method = cfg.resolved_nn_method(backend,
-                                       max(model.shape[0], scene.shape[0]))
+    nn_method = cfg.resolved_nn_method(
+        n_points=max(model.shape[0], scene.shape[0]))
     if scene_n is not None:
         scene_n = jnp.asarray(scene_n, jnp.int32)
     if model_n is not None:

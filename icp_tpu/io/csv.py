@@ -12,8 +12,8 @@ Reference semantics (``src/load.cc:3-97``):
     (``src/load.cc:68-97``).
 
 Layout note: the reference stores clouds 3xN (column = point,
-``src/load.cc:31``).  This framework stores N x 3 (row = point) — the natural
-layout for TPU (points on the sublane axis, coordinates padded onto lanes).
+``src/load.cc:31``).  This framework stores N x 3 (row = point); kernels
+that want coordinate planes transpose internally.
 
 A native C++ fast parser (``native/fast_csv.cc``) is used for large clouds when
 available; the NumPy path is the always-available fallback and the semantics

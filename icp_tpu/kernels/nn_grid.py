@@ -1,20 +1,16 @@
-"""Spatially-pruned nearest-neighbor search — exact, TPU-native, at-scale.
+"""Spatially-pruned nearest-neighbour search — exact, at scale.
 
-The brute-force kernels (``nn_pallas.py``) sit at the VPU roofline: every
-(scene, model) pair is touched, so horse (48k^2) costs ~6.8 ms/iteration and
-1M x 65k costs ~219 ms (docs/PERF.md).  The reference has no answer either —
-its hot loop is the same O(np*nm) sweep (``src/cpu.cc:5-27``,
-``src/GPU/compute.cu:94-245``).  This module prunes the sweep with a spatial
-structure designed for the TPU pipeline rather than a pointer-chasing k-d
-tree (which cannot map onto XLA/Mosaic):
+The dense kernel (``nn_pallas.py``) touches every (scene, model) pair.  The
+reference has no answer either — its hot loop is the same O(np*nm) sweep
+(``src/cpu.cc:5-27``, ``src/GPU/compute.cu:94-245``).  This module prunes
+the sweep with a spatial structure built from static shapes rather than a
+pointer-chasing k-d tree:
 
   1. **Static balanced-kd ordering.**  Points are permuted by L rounds of
      widest-axis median splits (one batched segmented argsort per round —
      every shape static), yielding 2^L equal-count, spatially-compact,
-     non-overlapping tiles; each tile's bbox is precomputed.  Measured on
-     horse: a scene tile overlaps ~3 of 32 model-tile bboxes when aligned
-     (~10 when grossly unaligned) vs ~11/~26 for Morton-order tiles.  The
-     engine kd-sorts the scene ONCE — a similarity transform preserves
+     non-overlapping tiles; each tile's bbox is precomputed.  The engine
+     kd-sorts the scene ONCE — a similarity transform preserves
      neighborhoods, so scene tiles stay compact for the whole ICP run.
   2. **Upper bounds from the previous iteration.**  ICP's correspondence
      changes slowly: the distance from p_i to its PREVIOUS matched model
@@ -23,30 +19,24 @@ tree (which cannot map onto XLA/Mosaic):
      the subsample is a subset of the model.)
   3. **Tile culling.**  Model tile j can contain the NN of some point in
      scene tile i only if bboxdist(box_i, box_j)^2 <= U_i = max_{p in i} u_p.
-     The (scene-tile x model-tile) mask is tiny (e.g. 2048 x 64 at 1M x 65k);
-     each row's passing tile ids are compacted into a (Ni, C) candidate
-     table (one per-row sort) plus per-row counts.
-  4. **In-kernel DMA work-list Pallas kernel.**  The kd-sorted model stays
-     resident in HBM as (Nj, 8, tm) — coords+original-index on sublanes,
-     points on lanes, so a tile slice is (8, tm) and lane-aligned.  A (Ni,)
-     grid gives each scene tile ONE kernel step that ``fori_loop``s over its
-     (dynamic) candidate count, DMA-ing each candidate tile HBM->VMEM with
-     double buffering (``make_async_copy``; next tile's copy in flight while
-     the current folds).  Total HBM traffic is sum(counts)*tm*32B — the
-     tiles actually needed — vs the 100 MB/iteration (Ni, C*tm, 8) buffer an
-     XLA-side gather materializes at horse scale (measured: the gather
-     version was only 1.4x over dense; this one is compute-bound).  Per-
-     grid-step overhead (~1.3 us) is paid Ni times, not Ni*C times (the
-     two-level (Ni, C) grid variant spent ~90% of its time on gated-off
-     steps at horse scale).
+     The (scene-tile x model-tile) mask is tiny; each row's passing tile ids
+     are compacted into a (Ni, C) candidate table plus per-row counts.
+  4. **Work-list kernel (Pallas, Triton route).**  One block per (scene
+     tile, power-of-two row sub-block) loads its own candidate count and
+     tile ids and loops over that dynamic count, reading each candidate
+     tile's coordinate planes from device memory in 128-point chunks.
+     Only the tiles actually needed are read.  XLA cannot skip tiles that
+     depend on the data without first gathering them into a dense
+     (Ni, C*tm) operand, which moves every candidate slot whether used or
+     not.
 
 Exactness: the candidate set provably contains every tile that can hold a
 true NN (u is an upper bound; bbox distance is a lower bound; both get an
 epsilon margin against f32 rounding), ties resolve to the lowest ORIGINAL
-model index (the kd tile's original indices ride along as a lane vector),
-and if any scene tile's candidate count exceeds the static capacity C the
-caller falls back to the dense kernel for that iteration via ``lax.cond`` —
-the result matches brute force (``tests/oracle.py`` contract) in every case.
+model index (the kd tile's original indices ride along as a row of the
+tile), and a scene tile whose candidate count exceeds the static capacity C
+folds every model tile in-kernel — the result matches brute force
+(``tests/oracle.py`` contract) in every case.
 """
 
 from __future__ import annotations
@@ -58,10 +48,12 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_COORD_LANES = 8
+_COORD_ROWS = 8  # tile rows: 0-2 coords, 3 original index, 4.. payload
 _BIG = 3.0e38
+_CHUNK = 128  # model points per inner step of the work-list kernel
+_SUB_BLOCK = 64  # scene rows per kernel block
 # f32 safety margins: u must stay an upper bound and bboxdist a lower bound
 # through f32 rounding, or a winning tile could be culled by one ulp.
 _UPPER_INFLATE = 1.0 + 1e-5
@@ -115,18 +107,16 @@ def levels_for(n: int, target_tile: int) -> int:
 class ModelGrid(NamedTuple):
     """kd-sorted model + per-tile bboxes (built once per ICP run)."""
 
-    tiles_t: jax.Array  # (Nj, 8, tm) TRANSPOSED tiles: sublanes 0-2 coords
-    #                     (padding at 1e17), sublane 3 = ORIGINAL index as
-    #                     f32 (exact below 2^24), sublanes 4..4+k = optional
-    #                     per-point payload (e.g. normals, k <= 4); points on
-    #                     lanes so an HBM tile-slice DMA is (8, tm) and
-    #                     lane-aligned
+    tiles_t: jax.Array  # (Nj, 8, tm) TRANSPOSED tiles: rows 0-2 coords
+    #                     (padding at 1e17), row 3 = ORIGINAL index as f32
+    #                     (exact below 2^24), rows 4..4+k = optional
+    #                     per-point payload (e.g. normals, k <= 4); each row
+    #                     of a tile is contiguous, so a chunk load coalesces
     tile_lo: jax.Array  # (Nj, 3) per-tile bbox minima (real rows only)
     tile_hi: jax.Array  # (Nj, 3)
-    model_orig: jax.Array  # (M, 3) f32 original-order model (u-bound gathers)
+    model_orig: jax.Array  # (M, 3) f32 original-order model
     model_tile: int
     payload_orig: jax.Array | None = None  # (M, k) original-order payload
-    #                                        (dense-fallback gathers)
 
 
 def build_model_grid(model: jax.Array, *, target_tile: int = 1024,
@@ -134,21 +124,21 @@ def build_model_grid(model: jax.Array, *, target_tile: int = 1024,
     """kd-sort the model and precompute per-tile bboxes.
 
     ``payload``: optional (M, k) per-point values (k <= 4, e.g. surface
-    normals for point-to-plane) packed into the spare tile sublanes — the
-    work-list kernel then emits the winning payload alongside the matched
-    point, keeping the hot loop gather-free.
+    normals for point-to-plane) packed into the spare tile rows so that
+    sharded engines can rotate them around the ring with the tiles; the
+    winning rows are gathered from ``payload_orig`` by index.
     """
     m = model.shape[0]
     if m >= 2**24:
         raise ValueError(
-            f"grid NN encodes original indices in f32 lanes (exact below "
+            f"grid NN encodes original indices in f32 (exact below "
             f"2**24); model has {m} points — shard it first"
         )
     dt = jnp.float32
     model = model.astype(dt)
     lvl = levels_for(m, target_tile)
     n_tiles = 2**lvl
-    tm = _round_up(-(-m // n_tiles), 128)
+    tm = _round_up(-(-m // n_tiles), _CHUNK)
     m_pad = tm * n_tiles
 
     pts_p = jnp.full((m_pad, 3), 1.0e17, dt).at[:m].set(model)
@@ -157,12 +147,12 @@ def build_model_grid(model: jax.Array, *, target_tile: int = 1024,
     sorted_pts = pts_p[perm]
     real = perm < m
 
-    buf = jnp.zeros((m_pad, _COORD_LANES), dt).at[:, :3].set(sorted_pts)
+    buf = jnp.zeros((m_pad, _COORD_ROWS), dt).at[:, :3].set(sorted_pts)
     buf = buf.at[:, 3].set(jnp.where(real, perm.astype(dt), _BIG))
     if payload is not None:
         k = payload.shape[1]
-        assert k <= _COORD_LANES - 4, (
-            f"payload width {k} exceeds the {_COORD_LANES - 4} spare sublanes"
+        assert k <= _COORD_ROWS - 4, (
+            f"payload width {k} exceeds the {_COORD_ROWS - 4} spare rows"
         )
         pl_pad = jnp.zeros((m_pad, k), dt).at[:m].set(payload.astype(dt))
         buf = buf.at[:, 4:4 + k].set(pl_pad[perm])
@@ -173,7 +163,7 @@ def build_model_grid(model: jax.Array, *, target_tile: int = 1024,
     tile_hi = jnp.max(jnp.where(r3, tiled, -_BIG), axis=1)
     return ModelGrid(
         tiles_t=jnp.transpose(
-            buf.reshape(n_tiles, tm, _COORD_LANES), (0, 2, 1)
+            buf.reshape(n_tiles, tm, _COORD_ROWS), (0, 2, 1)
         ),
         tile_lo=tile_lo,
         tile_hi=tile_hi,
@@ -184,16 +174,14 @@ def build_model_grid(model: jax.Array, *, target_tile: int = 1024,
 
 
 def initial_bound_indices(scene: jax.Array, model: jax.Array, *,
-                          stride: int = 16, interpret: bool | None = None):
+                          stride: int = 16, interpret: bool = False):
     """First-iteration upper-bound indices: exact NN against every
     ``stride``-th model point (a subset, so its distance bounds the true NN).
     Returns ORIGINAL model indices."""
-    from icp_tpu.kernels.nn_pallas import closest_point_indices_pallas
+    from icp_tpu.kernels.nn_pallas import closest_point_pallas
 
-    sub = model[::stride]
-    sub_idx = closest_point_indices_pallas(
-        scene, sub, scene_tile=512, model_tile=4096, interpret=interpret
-    )
+    sub_idx, _ = closest_point_pallas(scene, model[::stride],
+                                      interpret=interpret)
     return sub_idx * stride
 
 
@@ -233,119 +221,67 @@ def _candidates(p_pad, u_pad, grid: ModelGrid, *, scene_tile: int, cap: int):
     col = jnp.broadcast_to(jnp.arange(nj, dtype=jnp.int32)[None, :], mask.shape)
     keys = jnp.where(mask, col, jnp.int32(nj))
     keys = jax.lax.sort(keys, dimension=1)[:, :cap]  # (Ni, C)
-    cand = jnp.where(keys < nj, keys, 0)  # sentinel -> tile 0 (gated off)
+    cand = jnp.where(keys < nj, keys, 0)  # sentinel -> tile 0 (never read)
     return cand, counts, overflow
 
 
-def _pruned_kernel(emit_subl, nj, cand_ref, cnt_ref, p_ref, model_hbm,
-                   dist_ref, idx_ref, *rest):
-    """One grid step = ONE scene tile: fold its (dynamic) candidate count of
-    model tiles, each DMA-ed HBM->VMEM on demand with double buffering.
+def _worklist_kernel(cand_ref, cnt_ref, st_ref, tiles_ref, d_ref, i_ref, *,
+                     sb: int, blocks_per_tile: int, nj: int, cap: int,
+                     tm: int):
+    """One block = ``sb`` rows of one scene tile: fold the tile's (dynamic)
+    candidate count of model tiles, ``_CHUNK`` points at a time.
 
-    ``emit_subl``: static tuple of tile sublanes whose winning-lane values
-    the kernel emits (0-2 = matched point coords; 4+ = packed payload, e.g.
-    normals).  ``rest`` = len(emit_subl) output refs + scratch + DMA sems.
-
-    Per-tile overflow fallback: a scene tile whose candidate count exceeds
-    the table capacity folds ALL ``nj`` model tiles (ids = step index) — a
-    superset of its candidates, exact; only the unlucky tile pays.
-
-    Design notes (both measured at horse scale):
-      * a two-level (Ni, C) grid with ``pl.when``-gated folds spent ~90% of
-        its time on the ~1.3 us/step overhead of gated-off steps; one step
-        per scene tile pays the overhead Ni times and loops exactly
-        ``count`` times.
-      * an XLA-side gather of the candidate tiles into a dense (Ni, C*tm, 8)
-        operand moved ~100 MB/iteration regardless of counts (grid NN only
-        1.4x over dense); the in-kernel DMA moves sum(counts) tiles.
+    A tile whose candidate count exceeds the table capacity folds ALL ``nj``
+    model tiles (ids = loop index) — a superset of its candidates, exact;
+    only the unlucky tile pays.  Ties break to the lowest ORIGINAL index:
+    kd order is not index order, so the fold compares (d, index) pairs.
+    The running pair is kept per (row, lane) and reduced across lanes once
+    at the end (measured 3x faster than reducing every chunk, PERF.md).
     """
-    out_refs = rest[:len(emit_subl)]
-    scratch, sems = rest[len(emit_subl):]
-    tn = p_ref.shape[0]
-    tm = scratch.shape[2]
-    cap = cand_ref.shape[1]
-    # This step's row inside the (8, cap) SMEM window (Mosaic requires the
-    # sublane block dim divisible by 8; a whole-table window hits the 1 MB
-    # SMEM limit at 1M points — each SMEM scalar pads to 32 B).
-    r = jax.lax.rem(pl.program_id(0), jnp.int32(8))
-    cnt_raw = cnt_ref[r, 0]
+    t = pl.program_id(0)
+    rows = pl.ds((t * blocks_per_tile + pl.program_id(1)) * sb, sb)
+    px = st_ref[0, rows][:, None]
+    py = st_ref[1, rows][:, None]
+    pz = st_ref[2, rows][:, None]
+    cnt_raw = cnt_ref[t]
     use_all = cnt_raw > cap
     # counts >= 1 by construction (the previous-match tile always passes the
-    # cull); clamp anyway so the warm-up DMA is always legal and waited.
+    # cull); clamp anyway so every block folds at least one real tile.
     cnt = jnp.where(use_all, jnp.int32(nj), jnp.maximum(cnt_raw, 1))
 
-    def get_dma(slot, c):
-        tile = jnp.where(use_all, c, cand_ref[r, jnp.minimum(c, cap - 1)])
-        return pltpu.make_async_copy(
-            model_hbm.at[tile],  # (8, tm) slice of (Nj, 8, tm)
-            scratch.at[slot],
-            sems.at[slot],
-        )
+    def fold_tile(c, carry):
+        tile = jnp.where(use_all, c, cand_ref[t, jnp.minimum(c, cap - 1)])
 
-    get_dma(0, 0).start()
+        def fold_chunk(h, carry):
+            best_d, best_i = carry
+            cols = pl.ds(h * _CHUNK, _CHUNK)
+            dx = px - tiles_ref[tile, 0, cols][None, :]
+            dy = py - tiles_ref[tile, 1, cols][None, :]
+            dz = pz - tiles_ref[tile, 2, cols][None, :]
+            d = dx * dx + dy * dy + dz * dz  # (sb, CHUNK)
+            oidx = tiles_ref[tile, 3, cols][None, :]
+            better = jnp.logical_or(
+                d < best_d, jnp.logical_and(d == best_d, oidx < best_i))
+            return (jnp.where(better, d, best_d),
+                    jnp.where(better, oidx, best_i))
 
-    def fold(c, carry):
-        best_d, best_i, best_y = carry
-        slot = jax.lax.rem(c, jnp.int32(2))
+        return jax.lax.fori_loop(0, tm // _CHUNK, fold_chunk, carry)
 
-        @pl.when(c + 1 < cnt)
-        def _():
-            get_dma(jax.lax.rem(c + jnp.int32(1), jnp.int32(2)), c + 1).start()
-
-        get_dma(slot, c).wait()
-        rows = scratch[slot]  # (8, tm): sublanes 0-2 coords, 3 orig index
-        # Exact-f32 VPU broadcast distances (see nn_pallas._nn_kernel).
-        d = jnp.zeros((tn, tm), jnp.float32)
-        for k in range(3):
-            diff = p_ref[:, k][:, None] - rows[k, :][None, :]
-            d = d + diff * diff
-        local_min = jnp.min(d, axis=1, keepdims=True)  # (TN, 1)
-        # lowest ORIGINAL index among within-tile ties (kd order != index
-        # order; sublane 3 carries the original index as exact-integer f32)
-        oidx = jnp.broadcast_to(rows[3, :][None, :], d.shape)
-        cand = jnp.where(d == local_min, oidx, jnp.float32(_BIG))
-        win = jnp.min(cand, axis=1, keepdims=True)  # (TN, 1)
-        # Matched-point coords selected IN-kernel (the winning rows are in
-        # VMEM right now): a 48k-row XLA gather afterwards costs ~9 ns/row
-        # (~440 us at horse scale) — measured, dominates the pruned loop.
-        sel = jnp.logical_and(d == local_min, oidx == win)  # one lane true
-        y_new = tuple(
-            jnp.min(
-                jnp.where(sel, jnp.broadcast_to(rows[k, :][None, :], d.shape),
-                          jnp.float32(_BIG)),
-                axis=1, keepdims=True,
-            )
-            for k in emit_subl
-        )
-        better = jnp.logical_or(
-            local_min < best_d,
-            jnp.logical_and(local_min == best_d, win < best_i),
-        )
-        return (
-            jnp.where(better, local_min, best_d),
-            jnp.where(better, win, best_i),
-            tuple(jnp.where(better, yn, yo) for yn, yo in zip(y_new, best_y)),
-        )
-
-    init = (
-        jnp.full((tn, 1), jnp.float32(_BIG)),
-        jnp.full((tn, 1), jnp.float32(_BIG)),
-        (jnp.zeros((tn, 1), jnp.float32),) * len(emit_subl),
-    )
-    best_d, best_i, best_y = jax.lax.fori_loop(0, cnt, fold, init)
-    dist_ref[:] = best_d
-    idx_ref[:] = best_i
-    for ref, val in zip(out_refs, best_y):
-        ref[:] = val
+    best_d, best_i = jax.lax.fori_loop(
+        0, cnt, fold_tile,
+        (jnp.full((sb, _CHUNK), jnp.inf, jnp.float32),
+         jnp.full((sb, _CHUNK), _BIG, jnp.float32)))
+    dmin = jnp.min(best_d, axis=1)
+    d_ref[rows] = dmin
+    i_ref[rows] = jnp.min(jnp.where(best_d == dmin[:, None], best_i, _BIG),
+                          axis=1)
 
 
 def bound_from_indices(scene: jax.Array, grid: ModelGrid,
                        idx: jax.Array) -> jax.Array:
-    """(N,) NN-distance upper bounds: squared distance to a known model point.
-
-    One row gather — call OUTSIDE the hot loop (first iteration only; after
-    that the engine carries ``u = ||y - p_new||^2``, which it computes anyway:
-    a loop-varying 48k-row gather costs ~440 us on v5e, measured)."""
+    """(N,) NN-distance upper bounds: squared distance to a known model
+    point (first iteration only; after that the engine carries
+    ``u = ||y - p_new||^2``, which it computes anyway)."""
     return jnp.sum(
         (scene.astype(jnp.float32) - grid.model_orig[idx]) ** 2, axis=1
     )
@@ -366,8 +302,7 @@ def next_bound(y: jax.Array, p_new: jax.Array) -> jax.Array:
     return jnp.sum(d * d, axis=1)
 
 
-# NOTE: not jax.jit-wrapped (same nested-jit lowering-cache hazard as
-# nn_pallas); callers jit the enclosing program.
+# NOTE: not jax.jit-wrapped; callers jit the enclosing program.
 def closest_point_indices_pruned(
     scene: jax.Array,
     grid: ModelGrid,
@@ -375,24 +310,20 @@ def closest_point_indices_pruned(
     *,
     scene_tile: int = 256,
     max_candidates: int = 16,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ):
     """Exact NN via tile culling; returns (indices, matched points,
     payload-or-None, squared distances, overflow).
 
-    ``u``: (N,) f32 upper bounds on each point's squared NN distance (the
-    previous iteration's residual ``||y - p_new||^2``, or
-    ``bound_from_indices`` on the first iteration).  The result is ALWAYS
-    exact: a scene tile whose candidate count exceeds the table capacity
-    folds every model tile in-kernel (per-tile fallback); ``overflow`` is
-    informational (True when any tile did).  ``scene`` should be spatially
-    coherent (engine: kd-sorted once) for pruning to bite; correctness never
-    depends on it.  Matched points (the winning model rows) are emitted by
-    the kernel itself — they are in VMEM at fold time, and gathering them
-    afterwards would cost ~9 ns/row.
+    ``scene`` rows come in kd tiles of ``scene_tile`` rows (the engine
+    kd-sorts once); pruning bites only if the tiles are spatially coherent,
+    correctness never depends on it.  ``u``: (N,) f32 upper bounds on each
+    point's squared NN distance (the previous iteration's residual
+    ``||y - p_new||^2``, or ``bound_from_indices`` on the first iteration).
+    The result is ALWAYS exact; ``overflow`` is informational (True when
+    any tile folded every model tile).  Matched points and payload are
+    gathered by index after the kernel.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     n = scene.shape[0]
     dt = jnp.float32
     scene = scene.astype(dt)
@@ -405,9 +336,8 @@ def closest_point_indices_pruned(
     cap = min(max_candidates, nj)
 
     # Pad by replicating the last point: keeps tile bboxes tight and gives
-    # padding rows a real (discarded) NN problem.  Zero-width updates are
-    # skipped, not folded.
-    p_pad = jnp.zeros((n_pad, _COORD_LANES), dt)
+    # padding rows a real (discarded) NN problem.
+    p_pad = jnp.zeros((n_pad, _COORD_ROWS), dt)
     p_pad = p_pad.at[:n, :3].set(scene)
     u = u.astype(dt)
     if n_pad > n:
@@ -419,57 +349,34 @@ def closest_point_indices_pruned(
     cand, counts, overflow = _candidates(
         p_pad, u_pad, grid, scene_tile=tn, cap=cap
     )
-    # RAW counts to the kernel: rows whose count exceeds the table capacity
-    # fold ALL tiles in-kernel (per-tile fallback; exact either way)
-    counts_k = counts[:, None]  # (Ni, 1) SMEM operand
-    # pad rows to the (8, cap) SMEM window multiple (padded rows never read:
-    # the grid has ni steps)
-    ni8 = _round_up(ni, 8)
-    if ni8 > ni:
-        cand = jnp.pad(cand, ((0, ni8 - ni), (0, 0)))
-        counts_k = jnp.pad(counts_k, ((0, ni8 - ni), (0, 0)))
 
-    k_pl = 0 if grid.payload_orig is None else grid.payload_orig.shape[1]
-    emit_subl = tuple(range(3)) + tuple(range(4, 4 + k_pl))
-    n_out = 2 + len(emit_subl)
-    vals = pl.pallas_call(
-        functools.partial(_pruned_kernel, emit_subl, nj),
-        grid=(ni,),
-        in_specs=[
-            # (8, cap) SMEM row-window of the candidate table (kernel reads
-            # row program_id % 8): a whole-table window hits the 1 MB SMEM
-            # limit at 1M points (Ni=4096 rows allocate 2 MB — each SMEM
-            # scalar pads to 32 B), and Mosaic requires the sublane block
-            # dim divisible by 8.
-            pl.BlockSpec((8, cap), lambda i: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((8, 1), lambda i: (i // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((None, tn, _COORD_LANES), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            # kd-sorted model stays in HBM; the kernel DMAs candidate tiles
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((tn, 1), lambda i: (i, 0), memory_space=pltpu.VMEM)
-            for _ in range(n_out)
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad, 1), dt) for _ in range(n_out)
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2, _COORD_LANES, tm), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
+    # Kernel rows: each tile padded to a multiple of the power-of-two block
+    # by replicating its last row (same bbox; rows discarded after).
+    sb = 1
+    while sb < min(tn, _SUB_BLOCK):
+        sb *= 2
+    tnp = _round_up(tn, sb)
+    tiles = p_pad[:, :3].reshape(ni, tn, 3)
+    if tnp > tn:
+        tiles = jnp.concatenate(
+            [tiles, jnp.broadcast_to(tiles[:, -1:], (ni, tnp - tn, 3))], axis=1)
+    st = tiles.reshape(ni * tnp, 3).T  # (3, ni * tnp) coordinate planes
+    d_k, i_k = pl.pallas_call(
+        functools.partial(_worklist_kernel, sb=sb, blocks_per_tile=tnp // sb,
+                          nj=nj, cap=cap, tm=tm),
+        grid=(ni, tnp // sb),
+        out_shape=[jax.ShapeDtypeStruct((ni * tnp,), dt),
+                   jax.ShapeDtypeStruct((ni * tnp,), dt)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(cand, counts_k, p_pad.reshape(ni, tn, _COORD_LANES), grid.tiles_t)
-    dist, idx_f = vals[0], vals[1]
-    y = jnp.concatenate([v[:n] for v in vals[2:5]], axis=1)
-    pl_out = (
-        None if k_pl == 0
-        else jnp.concatenate([v[:n] for v in vals[5:]], axis=1)
-    )
-    return idx_f[:n, 0].astype(jnp.int32), y, pl_out, dist[:n, 0], overflow
+        name="nn_grid",
+    )(cand, counts, st, grid.tiles_t)
+    d2 = d_k.reshape(ni, tnp)[:, :tn].reshape(n_pad)[:n]
+    idx = i_k.reshape(ni, tnp)[:, :tn].reshape(n_pad)[:n].astype(jnp.int32)
+    y = grid.model_orig[idx]
+    pl_out = None if grid.payload_orig is None else grid.payload_orig[idx]
+    return idx, y, pl_out, d2, overflow
 
 
 def closest_point_indices_grid(
@@ -479,19 +386,17 @@ def closest_point_indices_grid(
     *,
     scene_tile: int = 256,
     max_candidates: int = 16,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ):
     """Exact NN via tile culling; returns (indices, matched model points,
     payload-or-None, squared distances).  The payload slot carries the
-    winning rows of the (M, k) values packed at
-    ``build_model_grid(payload=...)`` time (None when the grid has none).
+    winning rows of the (M, k) values given to
+    ``build_model_grid(payload=...)`` (None when the grid has none).
 
     Always identical to brute force (``tests/oracle.py`` contract: squared
-    distance, lowest-original-index ties): scene tiles whose candidate set
-    overflows the table fold every model tile in-kernel, so exactness never
-    depends on the bounds.  Distances use the broadcast diff-squares f32
-    math everywhere, so they are comparable bitwise across calls (the
-    sharded ring fold relies on this for cross-shard tie-breaking).
+    distance, lowest-original-index ties).  Distances use the subtract form
+    in f32 everywhere, so they compare bitwise across calls (the sharded
+    ring fold relies on this for cross-shard tie-breaking).
     """
     idx, y, pl_out, d2, _ = closest_point_indices_pruned(
         scene, grid, u,

@@ -1,34 +1,33 @@
-"""Fused tiled nearest-neighbor Pallas kernel — the flagship compute kernel.
+"""Dense nearest-neighbour kernel — Pallas through Triton.
 
-TPU-native replacement for the reference's optimized CUDA correspondence path
+Replaces the reference's optimized CUDA correspondence path
 (``compute_distance`` + ``find_Y`` + the memory-adaptive 1280-column batching
 orchestrator, ``src/GPU/compute.cu:94-245``).  Differences by design:
 
-  * The reference materializes a ``batch x nm`` distance matrix in GPU memory
-    per wave, then runs a serial-argmin kernel over it.  Here the grid runs
-    over (scene-tile i, model-tile j); each step computes a ``TN x TM``
-    distance tile *in VMEM* and folds a running (best distance, best index)
-    carry into the output block — the N x M matrix never exists, in any
-    memory (the online-softmax / blockwise-attention pattern, SURVEY.md §5
-    "long-context analog").  Two distance paths: ``vpu`` (default; 9 fused
-    broadcast passes, exact f32 — measured 3x faster than the MXU path at
-    dim=3 on v5e because exact-f32 MXU needs multi-pass splitting while K=3
-    wastes the systolic array) and ``mxu`` (``||m||^2 - 2 p.m`` expansion,
-    the classic pattern, which wins for high-dimensional features).
-  * The distance used is ``||m||^2 - 2 p.m`` (the ``||p||^2`` term is
-    constant per scene point and cannot affect the argmin).  Squared distance
-    is the reference contract (``src/GPU/compute.cu:117``).
+  * The reference materializes a ``batch x nm`` distance matrix in device
+    memory per wave, then runs a serial-argmin kernel over it.  Here one
+    block owns a power-of-two tile of scene rows and walks the model in
+    power-of-two tiles with a ``fori_loop``, holding the running
+    (min d^2, argmin) pair per (row, lane) in registers — the N x M matrix
+    never exists, in any memory.
+  * The distance is the subtract form ``sum_k (p_k - m_k)^2`` in FP32 on the
+    CUDA cores: a K=3 product wastes the tensor cores, and TF32 would flip
+    argmins.  Squared distance is the reference contract
+    (``src/GPU/compute.cu:117``).
   * Ties resolve to the lowest model index (reference ``compute.cu:137``):
-    within a tile via a masked index-min, across tiles via strict-< folding
-    in ascending j.
-  * Coordinates are zero-padded from 3 to 8 lanes so the cross term maps onto
-    the MXU; padded model rows get ``+BIG`` norms so they never win.
-
-Grid iteration order on TPU is row-major (j fastest), so the output block for
-scene tile i stays resident in VMEM across all j — the carry costs no HBM
-traffic.  The reference's ``BATCH_SIZE=1280`` "fill GPU until malloc fails"
-scheme (``compute.cu:154-245``) is replaced by static BlockSpec tiling chosen
-at trace time.
+    each lane keeps its earliest minimum by a strict ``<`` fold in ascending
+    model order, and the final masked index-min across lanes picks the
+    lowest of those.
+  * Small scenes leave most SMs idle, so the model axis can be split across
+    blocks (``splits``); a small XLA pass merges the per-split pairs, taking
+    the first split on ties, which keeps the lowest-index rule.
+  * The model travels as three coordinate planes (3, M): each tile row is
+    one contiguous, coalesced load.  Padded model rows sit at 1e17 per
+    coordinate (distance ~3e34, finite) and never win.
+  * Where it is used: ``auto`` takes it for mid-size clouds, between
+    XLA's fused broadcast (small clouds) and the kd-grid kernel (large
+    ones), as measured on the card (PERF.md).  It also serves the grid
+    engine's first-iteration bounds and the sharded dense engines.
 """
 
 from __future__ import annotations
@@ -38,307 +37,116 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_COORD_LANES = 8  # 3 coords zero-padded to 8 sublane-friendly lanes
-# Plain float (not jnp.float32(...)): jnp scalar construction at module scope
-# would allocate a device buffer at import time.
-_BIG = 3.0e38  # sentinel distance for padded model points
-
-
-def _nn_kernel_chunked(p_ref, mt_ref, mnorm_ref, dist_ref, idx_ref):
-    """Lane-chunked fold: distances computed 128 lanes at a time with a
-    running (best-distance, chunk-index) carry held in registers — the
-    (TN, TM) distance tile never exists, even in VMEM.  One cross-lane
-    argmin at the end over (TN, 128).
-
-    Tie contract preserved: strict < across chunks keeps the lowest chunk;
-    the final masked-min minimizes the true global index (chunk*128 + lane).
-    """
-    j = pl.program_id(1)
-    tn = p_ref.shape[0]
-    tm = mt_ref.shape[1]
-    n_chunks = tm // 128
-
-    px = p_ref[:, 0][:, None]
-    py = p_ref[:, 1][:, None]
-    pz = p_ref[:, 2][:, None]
-
-    best = jnp.full((tn, 128), jnp.float32(_BIG))
-    cidx = jnp.zeros((tn, 128), jnp.int32)
-    for c in range(n_chunks):  # unrolled; static trip count
-        sl = slice(c * 128, (c + 1) * 128)
-        dx = px - mt_ref[0, sl][None, :]
-        dy = py - mt_ref[1, sl][None, :]
-        dz = pz - mt_ref[2, sl][None, :]
-        dc = dx * dx + dy * dy + dz * dz
-        # padded model rows sit at 1e17 per coord => dc ~ 3e34, never wins
-        better = dc < best
-        best = jnp.where(better, dc, best)
-        cidx = jnp.where(better, jnp.int32(c), cidx)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tn, 128), dimension=1)
-    gidx_lane = cidx * 128 + lane  # local index within this model tile
-    local_min = jnp.min(best, axis=1, keepdims=True)
-    masked = jnp.where(best == local_min, gidx_lane, jnp.int32(2**31 - 1))
-    local_arg = jnp.min(masked, axis=1, keepdims=True)
-    gidx = local_arg + j * tm
-
-    @pl.when(j == 0)
-    def _init():
-        dist_ref[:] = local_min
-        idx_ref[:] = gidx
-
-    @pl.when(j > 0)
-    def _fold():
-        better = local_min < dist_ref[:]
-        dist_ref[:] = jnp.where(better, local_min, dist_ref[:])
-        idx_ref[:] = jnp.where(better, gidx, idx_ref[:])
+_PAD = 1.0e17  # coordinate of padded model rows
+_INT_MAX = 2**31 - 1
+# Blocks to aim for when splitting the model axis: one per streaming
+# multiprocessor of the H100 (132; measured at cow against 264 and no split).
+_TARGET_BLOCKS = 132
 
 
-def _nn_kernel(p_ref, mt_ref, mnorm_ref, dist_ref, idx_ref, *refs, precision,
-               native_argmin, distance_impl, with_points=False):
-    y_ref = refs[0] if with_points else None
-    j = pl.program_id(1)
-    tm = mt_ref.shape[1]
-
-    if distance_impl == "mxu":
-        # Distance tile on the MXU: d[a, b] = ||m_b||^2 - 2 p_a . m_b
-        # Never the MXU default: bf16 operand rounding perturbs distances by
-        # ~1e-2 relative, flipping ~70% of cow argmins (measured on v5e; the
-        # interpreter hides this).  HIGHEST = exact-f32 multi-pass.
-        # (Mosaic does not implement Precision.HIGH.)
-        prod = jax.lax.dot_general(
-            p_ref[:],
-            mt_ref[:],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=precision,
-        )
-        d = mnorm_ref[:] - 2.0 * prod  # (TN, TM); mnorm broadcasts (1, TM)
-    else:
-        # Pure-VPU broadcast form: exact f32, no MXU passes. For dim=3 the
-        # arithmetic is 9 fused elementwise passes — competitive with the
-        # multi-pass f32 MXU path and exact.
-        d = jnp.zeros((p_ref.shape[0], tm), jnp.float32)
-        for k in range(3):
-            diff = p_ref[:, k][:, None] - mt_ref[k, :][None, :]
-            d = d + diff * diff
-
-    # Fused min+argmin along the model axis, first-occurrence (lowest index)
-    # tie-breaking.
-    if native_argmin:
-        # jnp.argmin ties resolve to the first occurrence by contract.
-        local_min = jnp.min(d, axis=1, keepdims=True)
-        local_arg = jnp.argmin(d, axis=1).astype(jnp.int32)[:, None]
-    else:
-        local_min = jnp.min(d, axis=1, keepdims=True)  # (TN, 1)
-        col = jax.lax.broadcasted_iota(jnp.int32, d.shape, dimension=1)
-        masked = jnp.where(d == local_min, col, jnp.int32(2**31 - 1))
-        local_arg = jnp.min(masked, axis=1, keepdims=True)  # (TN, 1)
-    gidx = local_arg + j * tm
-
-    if with_points:
-        # In-kernel gather of the winning model point, as an exact one-hot
-        # matmul: onehot is 0/1 (exactly representable), the model tile is
-        # already in VMEM, and HIGHEST keeps f32-exact coordinates.  This
-        # kills the HBM row-gather (~12 us/iter on cow) after the kernel.
-        if native_argmin:
-            col = jax.lax.broadcasted_iota(jnp.int32, d.shape, dimension=1)
-        onehot = (col == local_arg).astype(jnp.float32)  # (TN, TM)
-        pt = jax.lax.dot_general(
-            onehot,
-            mt_ref[:],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.HIGHEST,
-        )  # (TN, 8)
-
-    @pl.when(j == 0)
-    def _init():
-        dist_ref[:] = local_min
-        idx_ref[:] = gidx
-        if with_points:
-            y_ref[:] = pt
-
-    @pl.when(j > 0)
-    def _fold():
-        better = local_min < dist_ref[:]  # strict <: earlier tile wins ties
-        dist_ref[:] = jnp.where(better, local_min, dist_ref[:])
-        idx_ref[:] = jnp.where(better, gidx, idx_ref[:])
-        if with_points:
-            y_ref[:] = jnp.where(better, pt, y_ref[:])
+def _pow2_at_most(x: int, cap: int) -> int:
+    p = 1
+    while p < x and p < cap:
+        p *= 2
+    return min(p, cap)
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def _dense_nn_kernel(s_ref, mt_ref, d_ref, i_ref, *, n: int, bn: int,
+                     bm: int, tiles_per_split: int):
+    """One block: ``bn`` scene rows against one split of the model tiles.
+
+    The running minimum is kept per (row, lane) across the model tiles, so
+    the loop body is subtract, multiply-add, compare and select — no
+    cross-lane reduction until the end (measured 4.7x faster at horse than
+    reducing every tile, PERF.md)."""
+    rows = pl.ds(pl.program_id(0) * bn, bn)
+    split = pl.program_id(1)
+    live = pl.program_id(0) * bn + jnp.arange(bn, dtype=jnp.int32) < n
+    px = plgpu.load(s_ref.at[rows, 0], mask=live, other=0.0)[:, None]
+    py = plgpu.load(s_ref.at[rows, 1], mask=live, other=0.0)[:, None]
+    pz = plgpu.load(s_ref.at[rows, 2], mask=live, other=0.0)[:, None]
+    j0 = split * tiles_per_split
+
+    def fold(t, carry):
+        best_d, best_j = carry
+        cols = pl.ds((j0 + t) * bm, bm)
+        dx = px - mt_ref[0, cols][None, :]
+        dy = py - mt_ref[1, cols][None, :]
+        dz = pz - mt_ref[2, cols][None, :]
+        d = dx * dx + dy * dy + dz * dz  # (bn, bm)
+        better = d < best_d  # strict: the earlier tile keeps a tie
+        return jnp.where(better, d, best_d), jnp.where(better, j0 + t, best_j)
+
+    best_d, best_j = jax.lax.fori_loop(
+        0, tiles_per_split, fold,
+        (jnp.full((bn, bm), jnp.inf, jnp.float32),
+         jnp.zeros((bn, bm), jnp.int32)))
+    dmin = jnp.min(best_d, axis=1)
+    # each lane holds its earliest minimum, so the lowest global index among
+    # the lanes at the row minimum is the lowest overall
+    col = jnp.arange(bm, dtype=jnp.int32)[None, :]
+    idx = jnp.min(jnp.where(best_d == dmin[:, None], best_j * bm + col,
+                            _INT_MAX), axis=1)
+    plgpu.store(d_ref.at[split, rows], dmin, mask=live)
+    plgpu.store(i_ref.at[split, rows], idx, mask=live)
 
 
-# NOTE: deliberately NOT wrapped in jax.jit — a nested jit around a
-# pallas_call inside an outer scan/fori body trips a lowering-cache KeyError
-# ('closed_call') in jax 0.9.0 when a second pallas kernel shares the body.
-# Callers jit the enclosing program.
-def _closest_pallas(
-    scene,
-    model,
+def closest_point_pallas(
+    scene: jax.Array,
+    model: jax.Array,
     *,
-    scene_tile: int,
-    model_tile: int,
-    interpret: bool,
-    with_dist: bool,
-    precision: str = "highest",
-    native_argmin: bool = False,
-    distance_impl: str = "vpu",
-    with_points: bool = False,
+    block_n: int = 16,
+    block_m: int = 64,
+    splits: int | None = None,
+    interpret: bool = False,
 ):
-    n, d = scene.shape
+    """Nearest model point for every scene point: ``(idx, d2)``.
+
+    ``idx`` (N,) int32 indices into ``model``, lowest index on ties; ``d2``
+    (N,) float32 squared distances.  ``splits``: model-axis splits per scene
+    block (``None``: enough to give the card ~two waves of blocks).
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
+
+    The scene is read as it is, (N, 3), with masked row loads; the model is
+    transposed and padded to (3, M_pad), which XLA hoists out of an ICP loop
+    (the model is loop-invariant).  Not wrapped in ``jax.jit``: callers jit
+    the enclosing program.
+    """
+    n, dim = scene.shape
     m = model.shape[0]
-    assert d == 3, f"expected 3-D points, got {d}"
+    assert dim == 3, f"expected 3-D points, got {dim}"
     dt = jnp.float32
-    scene = scene.astype(dt)
-    model = model.astype(dt)
+    bn = _pow2_at_most(n, block_n)
+    bm = _pow2_at_most(m, block_m)
+    n_blocks = -(-n // bn)
+    m_tiles = -(-m // bm)
+    if splits is None:
+        splits = -(-_TARGET_BLOCKS // n_blocks)
+    splits = max(1, min(splits, m_tiles))
+    tiles_per_split = -(-m_tiles // splits)
+    m_pad = splits * tiles_per_split * bm
 
-    tn = min(scene_tile, _round_up(n, 8))
-    tm = min(model_tile, _round_up(m, 128))
-    n_pad = _round_up(n, tn)
-    m_pad = _round_up(m, tm)
-
-    scene_p = jnp.zeros((n_pad, _COORD_LANES), dt).at[:n, :3].set(scene)
-    # Padded model rows sit at 1e17 per coordinate: their VPU-path distance is
-    # ~3e34 (finite, no overflow) and their MXU-path mnorm is _BIG — they can
-    # never win the argmin in either distance implementation.
-    model_p = jnp.zeros((m_pad, _COORD_LANES), dt).at[m:, :3].set(1.0e17)
-    model_p = model_p.at[:m, :3].set(model)
-    model_t = model_p.T  # (8, Mp)
-    mnorm = jnp.full((1, m_pad), _BIG, dt).at[0, :m].set(jnp.sum(model * model, axis=1))
-
-    prec = {
-        "high": jax.lax.Precision.HIGH,  # not implemented by Mosaic; kept
-        "highest": jax.lax.Precision.HIGHEST,
-    }[precision]
-    if distance_impl == "chunked":
-        assert not with_points, "chunked path returns indices only"
-        kernel = _nn_kernel_chunked
-    else:
-        kernel = functools.partial(
-            _nn_kernel,
-            precision=prec,
-            native_argmin=native_argmin,
-            distance_impl=distance_impl,
-            with_points=with_points,
-        )
-    grid = (n_pad // tn, m_pad // tm)
-    out_specs = [
-        pl.BlockSpec((tn, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((tn, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-    ]
-    out_shape = [
-        jax.ShapeDtypeStruct((n_pad, 1), dt),
-        jax.ShapeDtypeStruct((n_pad, 1), jnp.int32),
-    ]
-    if with_points:
-        out_specs.append(
-            pl.BlockSpec((tn, _COORD_LANES), lambda i, j: (i, 0), memory_space=pltpu.VMEM)
-        )
-        out_shape.append(jax.ShapeDtypeStruct((n_pad, _COORD_LANES), dt))
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tn, _COORD_LANES), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((_COORD_LANES, tm), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tm), lambda i, j: (0, j), memory_space=pltpu.VMEM),
+    mt = jnp.full((3, m_pad), _PAD, dt).at[:, :m].set(model.astype(dt).T)
+    d_all, i_all = pl.pallas_call(
+        functools.partial(_dense_nn_kernel, n=n, bn=bn, bm=bm,
+                          tiles_per_split=tiles_per_split),
+        grid=(n_blocks, splits),
+        out_shape=[
+            jax.ShapeDtypeStruct((splits, n), dt),
+            jax.ShapeDtypeStruct((splits, n), jnp.int32),
         ],
-        out_specs=out_specs,
-        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
-    )(scene_p, model_t, mnorm)
-    out_dist, out_idx = outs[0], outs[1]
+        name="nn_dense",
+    )(scene.astype(dt), mt)
+    if splits == 1:
+        return i_all[0], d_all[0]
+    # Merge the splits: argmin returns the first (lowest-model-order) split
+    # on ties, preserving the lowest-index rule.
+    win = jnp.argmin(d_all, axis=0)
+    idx = jnp.take_along_axis(i_all, win[None, :], axis=0)[0]
+    return idx, jnp.min(d_all, axis=0)
 
-    idx = out_idx[:n, 0]
-    if with_points:
-        return idx, outs[2][:n, :3]
-    if not with_dist:
-        return idx
-    if distance_impl == "mxu":
-        # MXU path carries ||m||^2 - 2 p.m; add back the ||p||^2 term.
-        d2 = out_dist[:n, 0] + jnp.sum(scene * scene, axis=1)
-    else:
-        # VPU path computes the true squared distance directly.
-        d2 = out_dist[:n, 0]
-    return idx, d2
-
-
-def closest_point_indices_pallas(
-    scene: jax.Array,
-    model: jax.Array,
-    *,
-    scene_tile: int = 256,
-    model_tile: int = 4096,
-    interpret: bool | None = None,
-    precision: str = "highest",
-    native_argmin: bool = False,
-    distance_impl: str = "vpu",
-) -> jax.Array:
-    """Nearest-model-point indices for each scene point — fused Pallas kernel.
-
-    ``interpret=None`` auto-selects: compiled on TPU, interpreter elsewhere
-    (which is how the CPU test suite exercises the kernel, SURVEY.md §4b).
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _closest_pallas(
-        scene,
-        model,
-        scene_tile=scene_tile,
-        model_tile=model_tile,
-        interpret=interpret,
-        with_dist=False,
-        precision=precision,
-        native_argmin=native_argmin,
-        distance_impl=distance_impl,
-    )
-
-
-def closest_points_and_targets_pallas(
-    scene: jax.Array,
-    model: jax.Array,
-    *,
-    scene_tile: int = 256,
-    model_tile: int = 4096,
-    interpret: bool | None = None,
-):
-    """(indices, matched model points) — the gather happens inside the kernel
-    via an exact one-hot matmul, so no HBM row-gather is needed after."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _closest_pallas(
-        scene,
-        model,
-        scene_tile=scene_tile,
-        model_tile=model_tile,
-        interpret=interpret,
-        with_dist=False,
-        with_points=True,
-    )
-
-
-def closest_point_with_distances_pallas(
-    scene: jax.Array,
-    model: jax.Array,
-    *,
-    scene_tile: int = 256,
-    model_tile: int = 4096,
-    interpret: bool | None = None,
-):
-    """(indices, true squared distances) variant for diagnostics/SLAM gating."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _closest_pallas(
-        scene,
-        model,
-        scene_tile=scene_tile,
-        model_tile=model_tile,
-        interpret=interpret,
-        with_dist=True,
-    )

@@ -20,10 +20,10 @@ large eigenvalues is order-dependent.  We implement the correct argmax.
 Acceptance criterion is convergence within the reference's error bound, not
 bit-equality of the quaternion branch.
 
-TPU-native design: everything is phrased over *sufficient statistics*
+Design: everything is phrased over *sufficient statistics*
 ``(sum_p, sum_y, sum_py, sum_pp, sum_yy, n)`` so the sharded engine can psum
 five small tensors over the device mesh and run the tiny 4x4 solve replicated
-on every chip (the reference ships centered clouds back to the host for its
+on every device (the reference ships centered clouds back to the host for its
 4x4 Eigen solve each iteration, ``src/GPU/gpu.cc:113``).
 
 Three eigen solvers:
@@ -31,8 +31,8 @@ Three eigen solvers:
   * ``qcp``    — Newton iteration on the quartic characteristic polynomial
                  (the N-matrix is traceless: P(l) = l^4 + c2 l^2 + c1 l + c0)
                  plus an adjugate-based eigenvector, refined by a few shifted
-                 power iterations.  Branch-free, no LAPACK-style loops: the
-                 fastest path inside a jitted TPU while_loop.  (Theobald-style
+                 power iterations.  Branch-free, no LAPACK-style loops: a
+                 few fused scalar kernels inside the jitted while_loop.  (Theobald-style
                  QCP; see PAPERS.md Kabsch-Umeyama reference.)
   * ``kabsch`` — 3x3 SVD with reflection correction (Kabsch/Umeyama).
 """
@@ -72,9 +72,9 @@ def compute_alignment_stats(
         acc_dtype = p.dtype
     pa = p.astype(acc_dtype)
     ya = y.astype(acc_dtype)
-    # HIGHEST precision: the TPU MXU default (bf16 inputs) pollutes the 3x3
-    # cross-covariance enough to put a ~1e-4 floor on the convergence error
-    # (measured on cow); full-f32 passes cost nothing at 3x3 output size.
+    # HIGHEST precision: a reduced-precision product (TF32 on the GPU)
+    # pollutes the 3x3 cross-covariance enough to put a floor on the
+    # convergence error; full f32 costs nothing at 3x3 output size.
     if weights is None:
         return AlignmentStats(
             sum_p=jnp.sum(pa, axis=0),
@@ -198,8 +198,8 @@ def max_eigvec_qcp(N: jax.Array, S: jax.Array, gp: jax.Array, gy: jax.Array,
     Newton from that upper bound converges monotonically and quadratically.
     The eigenvector is recovered from the adjugate of ``N - l I`` (rank-3 for
     a simple root => adj = c v v^T), with a few shifted power iterations to
-    clean up near-degenerate spectra.  Entirely branch-free: ideal inside a
-    jitted TPU while_loop, unlike a general eigensolver.
+    clean up near-degenerate spectra.  Entirely branch-free: straight-line
+    scalar code inside a jitted while_loop, unlike a general eigensolver.
     """
     dt = N.dtype
     # Scale-normalize: adjugate cofactors are cubic in |N|, so their squared
@@ -221,9 +221,9 @@ def max_eigvec_qcp(N: jax.Array, S: jax.Array, gp: jax.Array, gy: jax.Array,
         dp = jnp.where(jnp.abs(dp) < jnp.finfo(dt).tiny * 4 + 1e-30, 1.0, dp)
         return lam - p / dp
 
-    # Unrolled on purpose: a lax.fori_loop here costs ~microseconds PER STEP
-    # of loop overhead on TPU (~160us per ICP iteration all told, measured on
-    # v5e); unrolled, the whole chain is straight-line scalar code.
+    # Unrolled on purpose: a lax.fori_loop here would be a device-side loop
+    # with per-step overhead; unrolled, the whole chain is straight-line
+    # scalar code that XLA fuses.
     lam = lam0
     for _ in range(newton_iters):
         lam = newton_step(lam)
@@ -253,10 +253,11 @@ def rotation_kabsch(S: jax.Array) -> jax.Array:
     """
     # S = sum_i p_i y_i^T; we need R minimizing sum ||y - R p||^2
     # => R = V D U^T from SVD(S) = U Sig V^T, D = diag(1, 1, det(V U^T)).
+    hi = jax.lax.Precision.HIGHEST
     U, _, Vt = jnp.linalg.svd(S)
-    d = jnp.sign(jnp.linalg.det(Vt.T @ U.T))
+    d = jnp.sign(jnp.linalg.det(jnp.matmul(Vt.T, U.T, precision=hi)))
     D = jnp.diag(jnp.array([1.0, 1.0, 1.0], S.dtype)).at[2, 2].set(d)
-    return Vt.T @ D @ U.T
+    return jnp.matmul(jnp.matmul(Vt.T, D, precision=hi), U.T, precision=hi)
 
 
 class Similarity(NamedTuple):
@@ -275,21 +276,13 @@ def alignment_from_stats(
     mu_p = stats.sum_p / n
     mu_y = stats.sum_y / n
     # Centered cross-covariance and energies via the shift identities.
-    S = stats.sum_py - n * jnp.outer(mu_p, mu_y)
-    gp = stats.sum_pp - n * jnp.dot(mu_p, mu_p)
-    gy = stats.sum_yy - n * jnp.dot(mu_y, mu_y)
+    # elementwise forms: no dot product that could run at reduced precision
+    S = stats.sum_py - n * (mu_p[:, None] * mu_y[None, :])
+    gp = stats.sum_pp - n * jnp.sum(mu_p * mu_p)
+    gy = stats.sum_yy - n * jnp.sum(mu_y * mu_y)
 
     if solver == "kabsch":
         R = rotation_kabsch(S)
-    elif solver == "qcp_fused":
-        # Whole 4x4 solve in one Pallas kernel dispatch (see
-        # kernels/qcp_pallas.py: the XLA scalar chain costs ~94us/iter on
-        # v5e; the kernel ~2us).  Interpret mode off-TPU keeps tests honest.
-        from icp_tpu.kernels.qcp_pallas import horn_rotation_pallas
-
-        interp = jax.default_backend() != "tpu"
-        R, _, _ = horn_rotation_pallas(S, gp, gy, interpret=interp)
-        R = R.astype(S.dtype)
     else:
         N = horn_n_matrix(S)
         if solver == "eigh":

@@ -1,4 +1,4 @@
-"""FPFH point features — TPU-native (one-hot-matmul histograms, static shapes).
+"""FPFH point features (one-hot histograms, static shapes).
 
 Fast Point Feature Histograms (Rusu et al., ICRA 2009): a 33-dimensional
 rotation-invariant descriptor per point, the standard feature for *global*
@@ -7,11 +7,10 @@ is purely local and its datasets are near-aligned; this module (with
 ``engine/global_reg.py``) removes that limitation, which is what makes the
 bunny-style partial-overlap chains robust to arbitrary initial poses.
 
-TPU formulation (vs the classic pointer-chasing one):
-  * neighbor sets come from the exact tiled kNN Pallas kernel
-    (``kernels/knn_pallas.py`` / ``kernels/knn_grid.py``) — (N, k) static;
+Formulation (vs the classic pointer-chasing one):
+  * neighbor sets come from the exact kNN (``ops/knn.py``) — (N, k) static;
   * the three Darboux-frame angles (alpha, phi, theta) for all N x k pairs
-    are computed in one vectorized pass (VPU);
+    are computed in one vectorized pass;
   * histogramming is ``one_hot(bins) summed over k`` — an (N*k, 11)-shaped
     matmul-like reduction XLA fuses, not a scatter;
   * the FPFH neighbor mix-in (sum_j SPFH(q_j)/omega_j) is a gather + masked
@@ -182,23 +181,10 @@ def fpfh_features(points: jax.Array, *, k: int = 32,
     n = points.shape[0]
     k_eff = min(k + 1, n)  # + self, masked out of the histograms
     k_fetch = min(max(k + 1, orient_k), n)
-    if method == "auto":
-        method = "grid" if n >= 16384 else "dense"
-    if method == "grid":
-        from icp_tpu.engine.grid import _prepare_scene
-        from icp_tpu.kernels.knn_grid import knn_grid
-        from icp_tpu.kernels.nn_grid import build_model_grid
+    from icp_tpu.ops.knn import knn
 
-        pts32 = points.astype(jnp.float32)
-        grid = build_model_grid(pts32, target_tile=256)
-        p_sorted, _, inv_slots, tn, _ = _prepare_scene(pts32, 64)
-        _, idx_sorted = knn_grid(p_sorted, grid, k_fetch, scene_tile=tn,
-                                 max_candidates=32)
-        idx_fetch = idx_sorted[inv_slots]
-    else:
-        from icp_tpu.kernels.knn_pallas import knn_pallas
-
-        _, idx_fetch = knn_pallas(points, points, k_fetch)
+    _, idx_fetch = knn(points, k_fetch, method=method, scene_tile=64,
+                       model_tile=256, max_candidates=32)
     idx = idx_fetch[:, :k_eff]
     if normals is None:
         from icp_tpu.ops.normals import normals_from_neighbor_indices

@@ -1,16 +1,13 @@
-"""Surface-normal estimation — TPU-native, closed-form, batched.
+"""Surface-normal estimation — closed-form, batched.
 
 Prerequisite for point-to-plane ICP (``engine/point_to_plane.py``) and GICP.
 No reference counterpart (the reference is point-to-point only).
 
-Design: kNN per point via the fused tiled Pallas kernel
-(``kernels/knn_pallas.py`` — the k-best-carry generalization of the
-correspondence kernel; the earlier chunked ``lax.top_k`` formulation cost
-2.2 s on the 2,903-point cow and was O(chunk x N) in memory), then the
-normal is the smallest eigenvector of the local covariance — computed in
-closed form (trigonometric eigenvalues + row-cross eigenvector), fully
-branchless: no LAPACK-style ``eigh`` whose in-loop compilation is
-pathological on this stack (docs/PERF.md).
+Design: exact kNN per point (``ops/knn.py``, plain XLA — it runs once per
+cloud, off the iteration loop), then the normal is the smallest
+eigenvector of the local covariance — computed in closed form
+(trigonometric eigenvalues + row-cross eigenvector), fully branchless: no
+LAPACK-style ``eigh`` per point.
 """
 
 from __future__ import annotations
@@ -81,43 +78,26 @@ def estimate_normals(points: jax.Array, *, k: int = 16,
                      grid_max_candidates: int = 32) -> jax.Array:
     """(N, 3) cloud -> (N, 3) unit normals from k-nearest-neighbor PCA.
 
-    Neighbors come from the fused kNN Pallas kernel (exact f32 distances;
-    the neighbor SET is all PCA needs, so the f32 kernel serves every dtype).
-    Orientation is arbitrary (point-to-plane residuals are squared; flip with
+    Neighbors come from the exact f32 kNN (``ops/knn.py``; the neighbor SET
+    is all PCA needs, so the f32 search serves every dtype).  Orientation is
+    arbitrary (point-to-plane residuals are squared; flip with
     ``orient_normals`` if a consistent orientation is needed).
 
-    ``method``: ``"dense"`` (tiled O(N^2) kernel), ``"grid"`` (kd-tile
-    pruned ``kernels/knn_grid.py`` — same exact result, the at-scale path),
-    or ``"auto"`` (grid from 16k points).  ``chunk`` is accepted for
-    back-compatibility and ignored (the old chunked ``top_k`` formulation it
-    tuned is gone).
+    ``method``: ``"dense"`` (blocked O(N^2)), ``"grid"`` (kd-tile pruned —
+    same exact result, the at-scale path), or ``"auto"``
+    (``config.resolve_knn_method``).  Smaller kd tiles than the
+    correspondence path: kNN culls with a per-tile MAX k-th-distance bound,
+    which only stays tight over few queries.  ``chunk`` is accepted for
+    back-compatibility and ignored.
     """
+    from icp_tpu.ops.knn import knn
+
     del chunk
     n = points.shape[0]
     k_eff = min(k + 1, n)  # +1: the point itself is its own nearest neighbor
-    if method == "auto":
-        method = "grid" if n >= 16384 else "dense"
-    if method == "grid":
-        from icp_tpu.engine.grid import _prepare_scene
-        from icp_tpu.kernels.knn_grid import knn_grid
-        from icp_tpu.kernels.nn_grid import build_model_grid
-
-        pts32 = points.astype(jnp.float32)
-        # Smaller tiles than the correspondence path: kNN culls with a
-        # per-scene-tile MAX k-th-distance bound, which only stays tight
-        # over few queries; and candidate counts are in tile units, so
-        # small model tiles keep counts*tm (the folded work) low.
-        grid = build_model_grid(pts32, target_tile=grid_model_tile)
-        # kd-sort the queries for tile coherence; un-permute the result rows
-        # (the returned idx VALUES are already original indices)
-        p_sorted, _, inv_slots, tn, _ = _prepare_scene(pts32, grid_scene_tile)
-        _, idx_sorted = knn_grid(p_sorted, grid, k_eff, scene_tile=tn,
-                                 max_candidates=grid_max_candidates)
-        idx = idx_sorted[inv_slots]
-    else:
-        from icp_tpu.kernels.knn_pallas import knn_pallas
-
-        _, idx = knn_pallas(points, points, k_eff)
+    _, idx = knn(points, k_eff, method=method, scene_tile=grid_scene_tile,
+                 model_tile=grid_model_tile,
+                 max_candidates=grid_max_candidates)
     return normals_from_neighbor_indices(points, idx)
 
 

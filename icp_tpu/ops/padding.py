@@ -3,12 +3,11 @@
 XLA compiles one program per distinct input shape.  A registration chain
 over real scans (e.g. the 5 bunny views, 31,701-40,256 points each —
 ``data_students/README.md``) therefore compiles a fresh multi-second program
-for EVERY pair and every multiscale level; on a remote-compile backend the
-compiles dominate the wall time (measured: the full-res bunny SLAM chain
-spent ~330 of 336 s compiling, docs/PERF.md).  The reference never faces
+for EVERY pair and every multiscale level, and the compiles can dominate the
+wall time of a chain.  The reference never faces
 this — it cannot register unequal-count clouds at all (``src/cpu.cc:42-53``).
 
-The TPU-idiomatic fix is the standard one for dynamic shapes: pad every
+The fix is the standard one for dynamic shapes: pad every
 cloud up to a quantized *bucket* size and carry the true row count as a
 DYNAMIC scalar, so a single compiled program serves every cloud that lands
 in the bucket.  Two padding conventions cooperate:

@@ -2,11 +2,10 @@
 
 Trimmed ICP needs a per-iteration distance threshold tau with
 ``count(d2 <= tau) >= q * N``.  ``jnp.quantile`` delivers that through a full
-device sort — O(N log N) work and an awkward fit for the TPU (sorts lower to
-expensive multi-pass programs), and it cannot be distributed.  A trim
+device sort — O(N log N) work, and it cannot be distributed.  A trim
 threshold does not need sort precision: two rounds of 32-bin histogram
 refinement bracket the quantile to ~1/1024 of the value range using only
-fused compare+reduce passes (O(rounds * bins * N) VPU work, no
+fused compare+reduce passes (O(rounds * bins * N) elementwise work, no
 materialized N x bins buffer after XLA fusion), and each round reduces to
 one (bins,) vector — psum-able, which is how the sharded engines have always
 computed it (``parallel/sharded.py``).

@@ -3,9 +3,9 @@
 Reference counterparts: ``CPU::err_compute`` (apply + error in one pass,
 ``src/cpu.cc:29-40``), ``CPU::err_compute_alignment`` (non-mutating residual,
 ``src/cpu.cc:93-103``), CUDA fused kernel ``compute_err``
-(``src/GPU/compute.cu:315-379``).  On TPU these are single fused VPU passes
+(``src/GPU/compute.cu:315-379``).  Here these are single fused passes
 (XLA fuses transform + subtract + square + reduce); no hand-written kernel is
-needed (benchmarked in ``bench/``).
+needed.
 
 Unlike the reference (which only ever mutates the running cloud and never
 composes the per-iteration transforms — SURVEY.md §3 numerics contract), we
@@ -33,10 +33,10 @@ def identity_similarity(dtype=jnp.float32) -> Similarity:
 def apply_similarity(p: jax.Array, sim: Similarity) -> jax.Array:
     """p -> s R p + t for an (N, 3) cloud (rows = points).
 
-    HIGHEST precision: with the TPU MXU default (bf16 operands) the per-
-    iteration transform would inject ~1e-3-relative noise into the cloud,
-    capping ICP convergence near 1e-4 (measured on cow); the (N,3)x(3,3)
-    matmul is bandwidth-bound so full-f32 passes are free.
+    HIGHEST precision: a reduced-precision product (TF32 on the GPU) would
+    inject ~1e-3-relative noise into the cloud every iteration, capping ICP
+    convergence far above the reference threshold; the (N,3)x(3,3) product
+    is bandwidth-bound so full f32 is free.
     """
     return (
         jnp.matmul(p, (sim.s * sim.R).T, precision=jax.lax.Precision.HIGHEST)
@@ -62,8 +62,8 @@ def apply_and_error(
 
 
 def _mm3(A: jax.Array, B: jax.Array) -> jax.Array:
-    """Fusable 3x3 @ 3x3 (a bare matmul dispatches a tiny MXU kernel per
-    loop iteration; the broadcast form fuses into the scalar chain)."""
+    """Fusable 3x3 @ 3x3 (a bare matmul dispatches a tiny kernel per loop
+    iteration; the broadcast form fuses into the scalar chain)."""
     return jnp.sum(A[:, :, None] * B[None, :, :], axis=1)
 
 

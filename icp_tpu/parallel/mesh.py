@@ -2,8 +2,9 @@
 
 The reference has no multi-device code of any kind (SURVEY.md §2 parallelism
 table); this module is the foundation the reference lacks: a 1-D ``points``
-mesh over all chips (ICI within a slice, DCN across hosts is handled
-transparently by jax.distributed), used to shard scene/model points.
+mesh over all devices, used to shard scene/model points.  The mesh follows
+the algorithm: the cards of one host reach each other all to all (NVLink),
+so no device order is preferred.
 """
 
 from __future__ import annotations
@@ -33,11 +34,12 @@ def init_distributed(
 ) -> None:
     """Multi-host bring-up: one call per host before any mesh construction.
 
-    Thin wrapper over ``jax.distributed.initialize`` (auto-detects on Cloud
-    TPU pods when called with no arguments).  After this, ``make_mesh()``
-    spans every chip in the slice and the sharded engine's collectives ride
-    ICI within hosts and DCN across them — the distributed backend the
-    reference lacks entirely (SURVEY.md §5).
+    Thin wrapper over ``jax.distributed.initialize``; pass the coordinator
+    address (``host:port``), the process count and this process's id —
+    nothing detects a cluster on its own.  After this, ``make_mesh()`` spans
+    every device of every process and the sharded engine's collectives run
+    over NCCL — the distributed backend the reference lacks entirely
+    (SURVEY.md §5).
     """
     import jax
 

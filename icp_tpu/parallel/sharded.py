@@ -1,26 +1,26 @@
-"""Sharded multi-chip ICP: scene and model partitioned over a device mesh.
+"""Sharded multi-device ICP: scene and model partitioned over a device mesh.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §2); this is
-the scaling layer it lacks, designed TPU-first:
+the scaling layer it lacks:
 
-  * Scene points are sharded over the 1-D ``points`` mesh axis; every chip
+  * Scene points are sharded over the 1-D ``points`` mesh axis; every device
     owns ``N / n_dev`` scene rows for the whole run (zero resharding).
   * Model points are likewise sharded.  The NN search folds over model shards
     with a **ring schedule**: each step computes local (distance, argmin)
     against the currently-held model shard, folds it into a running carry
     (with global indices and lowest-global-index tie-breaking), then
-    ``ppermute``s the shard to the next neighbor over ICI.  Peak memory per
-    chip is O(N/n + M/n); the matched points are gathered *during* the fold
-    (the winning rows are in-VMEM at fold time), so no global gather is ever
-    needed — SURVEY.md §7 "hard part #1".
+    ``ppermute``s the shard to the next device (NCCL over NVLink on a GPU
+    host).  Peak memory per device is O(N/n + M/n); the matched points are
+    gathered *during* the fold, so no global gather is ever needed —
+    SURVEY.md §7 "hard part #1".
   * Centroids / cross-covariance / scale energies / error are computed from
     masked local partial sums + one fused ``psum`` (``AlignmentStats`` is a
     pytree of plain sums by construction).  The 4x4 Horn solve then runs
-    replicated on every chip — microseconds of redundant compute instead of
+    replicated on every device — microseconds of redundant compute instead of
     the reference's per-iteration device->host round trip
     (``src/GPU/gpu.cc:113``).
   * The whole convergence loop is one ``lax.while_loop`` *inside* shard_map:
-    one compiled program per run, collectives riding ICI each iteration.
+    one compiled program per run, collectives every iteration.
 
 An ``all_gather`` variant (model replicated before the loop) is provided for
 small models where the ring's latency is not worth it.
@@ -36,7 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
-from icp_tpu.config import ICPConfig
+from icp_tpu.config import ICPConfig, kernel_interpret
 from icp_tpu.engine.icp import ICPResult, ICPTrace
 from icp_tpu.ops.alignment import AlignmentStats, alignment_from_stats
 from icp_tpu.ops.transform import apply_similarity, compose, identity_similarity
@@ -52,15 +52,16 @@ _BIG = 3.0e38
 def _local_partial_argmin(p_loc: jax.Array, m_cur: jax.Array, nn_impl: str):
     """Per scene point: (distance, argmin) against one model shard.
 
-    ``nn_impl="pallas"`` runs the fused tiled kernel — mandatory at scale:
-    the jnp path materializes the local N_loc x M_loc matrix (62 GB for a
-    1M-point cloud on 8 chips).  Both impls return distances that are
+    ``nn_impl="pallas"`` runs the dense Triton kernel — mandatory at scale:
+    the jnp path materializes the local N_loc x M_loc matrix (250 GB for a
+    1M-point cloud on 4 devices).  Both impls return distances that are
     consistent across shards, so cross-shard tie comparisons are exact.
     """
     if nn_impl == "pallas":
-        from icp_tpu.kernels.nn_pallas import closest_point_with_distances_pallas
+        from icp_tpu.kernels.nn_pallas import closest_point_pallas
 
-        idx, d2 = closest_point_with_distances_pallas(p_loc, m_cur)
+        idx, d2 = closest_point_pallas(p_loc, m_cur,
+                                       interpret=kernel_interpret())
         return d2, idx
     # jnp fallback (small problems / CPU tests): ||m||^2 - 2 p.m — the
     # ||p||^2 term is constant per scene point and identical across shards,
@@ -107,7 +108,7 @@ def _ring_correspond(p_loc, m_loc, *, axis: str, n_dev: int, nn_impl: str = "jnp
     """Ring NN fold: returns (matched model points, global indices[, payloads]).
 
     Each of the ``n_dev`` hops: fold local argmin vs the held shard, then
-    pass the shard one neighbor to the right (ICI ring).
+    pass the shard one neighbor to the right.
 
     ``payload``: optional tuple of per-model-point arrays (M_loc, ...) that
     ride the ring alongside the model shard; each winning row is gathered
@@ -298,7 +299,7 @@ def make_mesh_2d(n_sp: int, n_mp: int, devices=None) -> Mesh:
     """(sp, mp) mesh: scene points partitioned over ``sp``, model points over
     ``mp``.  Each device owns an (N/sp, M/mp) block of the correspondence
     problem — the 2-D analog of the reference's 2D CUDA thread grid
-    (``src/GPU/compute.cu:94-118``), at pod scale."""
+    (``src/GPU/compute.cu:94-118``), across devices."""
     if devices is None:
         devices = jax.devices()[: n_sp * n_mp]
     assert len(devices) >= n_sp * n_mp
@@ -499,7 +500,6 @@ def icp_sharded_2d(
     )
     mask_d = jax.device_put(mask, NamedSharding(mesh, PartitionSpec("sp")))
 
-    backend = jax.default_backend()
     out = _icp_sharded_2d_jit(
         model_d,
         scene_d,
@@ -507,10 +507,10 @@ def icp_sharded_2d(
         jnp.asarray(cfg.threshold, cfg.dtype),
         mesh=mesh,
         max_iter=cfg.max_iter,
-        solver=cfg.resolved_solver(backend),
+        solver=cfg.resolved_solver(),
         with_scale=cfg.with_scale,
         reference_compat=cfg.reference_compat,
-        nn_impl="pallas" if cfg.resolved_nn_method(backend) == "pallas" else "jnp",
+        nn_impl="pallas" if cfg.resolved_nn_method() == "pallas" else "jnp",
         trim_fraction=cfg.trim_fraction,
         trace=trace,
     )
@@ -565,7 +565,7 @@ def icp_sharded(
     trace: bool = False,
     n_iters=None,
 ) -> ICPResult:
-    """Multi-chip ICP over a ``points`` mesh.  API-compatible with
+    """Multi-device ICP over a ``points`` mesh.  API-compatible with
     ``icp_tpu.icp``; returns the same ``ICPResult`` (points un-padded).
     ``trace=True`` returns an ``ICPTrace`` with the per-iteration errors.
     ``n_iters``: optional DYNAMIC iteration bound replacing
@@ -574,8 +574,8 @@ def icp_sharded(
     cfg = config or ICPConfig()
     _check_trace_bound(trace, n_iters, cfg.max_iter)
     mesh = mesh or make_mesh()
-    if cfg.resolved_nn_method(jax.default_backend(),
-                              max(len(model), len(scene))) == "grid":
+    if cfg.resolved_nn_method(
+            n_points=max(len(model), len(scene))) == "grid":
         # spatially-pruned ring fold (parallel/sharded_grid.py); ``ring``
         # does not apply — the grid path is always a ring
         from icp_tpu.parallel.sharded_grid import icp_sharded_grid
@@ -603,7 +603,6 @@ def icp_sharded(
     scene_d = jax.device_put(scene_pad, shard)
     mask_d = jax.device_put(mask, mask_shard)
 
-    backend = jax.default_backend()
     out = _icp_sharded_jit(
         model_d,
         scene_d,
@@ -612,11 +611,11 @@ def icp_sharded(
         None if n_iters is None else jnp.asarray(n_iters, jnp.int32),
         mesh=mesh,
         max_iter=cfg.max_iter,
-        solver=cfg.resolved_solver(backend),
+        solver=cfg.resolved_solver(),
         with_scale=cfg.with_scale,
         reference_compat=cfg.reference_compat,
         ring=ring,
-        nn_impl="pallas" if cfg.resolved_nn_method(backend) == "pallas" else "jnp",
+        nn_impl="pallas" if cfg.resolved_nn_method() == "pallas" else "jnp",
         trim_fraction=cfg.trim_fraction,
         trace=trace,
     )

@@ -1,9 +1,9 @@
 """Sharded spatially-pruned ICP: ring fold + per-shard kd-tile culling.
 
 The at-scale composition of the two round-2 engines: ``parallel/sharded.py``'s
-ring ``ppermute`` fold (model shards travel the ICI ring, scene stays put)
+ring ``ppermute`` fold (model shards travel the ring, scene stays put)
 with ``kernels/nn_grid.py``'s exact tile culling (kd tiles + upper-bound
-pruning + in-kernel DMA work list) applied per hop:
+pruning + work-list kernel) applied per hop:
 
   * each device kd-sorts ITS scene shard once and builds a ``ModelGrid`` over
     ITS model shard once; the grid's arrays (transposed tiles, bboxes,
@@ -22,7 +22,7 @@ pruning + in-kernel DMA work list) applied per hop:
 
 No reference counterpart (the reference is single-GPU brute force,
 ``src/GPU/compute.cu:94-245``); this is the framework's own at-scale story:
-1M-point clouds sharded over a pod slice at grid-pruned cost, with no
+1M-point clouds sharded over a multi-GPU host at grid-pruned cost, with no
 O(N_loc x M) buffer anywhere.
 """
 
@@ -35,7 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
-from icp_tpu.config import ICPConfig
+from icp_tpu.config import ICPConfig, kernel_interpret
 from icp_tpu.engine.icp import ICPResult, ICPTrace
 from icp_tpu.kernels.nn_grid import (
     ModelGrid,
@@ -98,7 +98,7 @@ def _ring_correspond_grid(p_loc, u, grid_arrays, *, tm: int, axis: str,
     ring (``model_tile`` stays static and is passed as ``tm``).
 
     ``payload_dim`` > 0: the grids were built with an (M, payload_dim)
-    payload packed in the tile sublanes (e.g. normals for point-to-plane /
+    payload packed in the spare tile rows (e.g. normals for point-to-plane /
     GICP); the winning payload rows ride the fold carry, so the sharded
     payload engines stay gather-free too.
     """
@@ -192,7 +192,7 @@ def _icp_sharded_grid_jit(
     n_dev = mesh.shape[axis]
     dt = scene_pad.dtype
     m_shard = model_pad.shape[0] // n_dev
-    interp = jax.default_backend() != "tpu"
+    interp = kernel_interpret()
     bound = jnp.asarray(max_iter if n_iters is None else n_iters, jnp.int32)
 
     def local_icp(m_loc, p_loc_raw, w_loc_raw, bound):
@@ -309,7 +309,7 @@ def icp_sharded_grid(
     trace: bool = False,
     n_iters=None,
 ):
-    """Multi-chip spatially-pruned ICP over a ``points`` mesh.
+    """Multi-device spatially-pruned ICP over a ``points`` mesh.
 
     API-compatible with ``icp_sharded`` (``icp_sharded(nn_method="grid")``
     dispatches here).  Model padding uses the 1e17 sentinel: pad rows form
@@ -334,7 +334,6 @@ def icp_sharded_grid(
 
     shard = NamedSharding(mesh, PartitionSpec(axis, None))
     mask_shard = NamedSharding(mesh, PartitionSpec(axis))
-    backend = jax.default_backend()
     out = _icp_sharded_grid_jit(
         jax.device_put(model_pad, shard),
         jax.device_put(scene_pad, shard),
@@ -343,7 +342,7 @@ def icp_sharded_grid(
         None if n_iters is None else jnp.asarray(n_iters, jnp.int32),
         mesh=mesh,
         max_iter=cfg.max_iter,
-        solver=cfg.resolved_solver(backend),
+        solver=cfg.resolved_solver(),
         with_scale=cfg.with_scale,
         reference_compat=cfg.reference_compat,
         trim_fraction=cfg.trim_fraction,
@@ -388,10 +387,9 @@ def _gn_sharded_grid_jit(
 ):
     """Sharded grid-pruned GN loop shared by point-to-plane and GICP.
 
-    Model normals ride the kd tiles' spare sublanes of each shard's grid and
-    the whole grid rotates around the ring; the winning (point, normal) pair
-    comes out of the fold carry — gather-free, like the single-device grid
-    engines.  GICP recomputes the model covariance from the emitted normal
+    Model normals ride each shard's grid as payload and the whole grid
+    rotates around the ring; the winning (point, normal) pair comes out of
+    the fold carry, like the single-device grid engines.  GICP recomputes the model covariance from the emitted normal
     (``disk_covariances`` is a pure function of it) and rotates the local
     scene covariances with each step.  6x6 normal equations psum-reduced;
     solve + Rodrigues replicated.
@@ -404,7 +402,7 @@ def _gn_sharded_grid_jit(
     n_dev = mesh.shape[axis]
     dt = scene_pad.dtype
     m_shard = model_pad.shape[0] // n_dev
-    interp = jax.default_backend() != "tpu"
+    interp = kernel_interpret()
     gicp = engine == "gicp"
     sym = engine == "symmetric"
 
@@ -483,9 +481,10 @@ def _gn_sharded_grid_jit(
                 x = -jnp.linalg.solve(A + 1e-9 * jnp.eye(6, dtype=dt), b)
                 R = _rodrigues(x[:3])
                 R2 = jnp.matmul(R, R, precision=HI)
-                sim = Similarity(s=jnp.asarray(1.0, dt), R=R2, t=R @ x[3:])
+                sim = Similarity(s=jnp.asarray(1.0, dt), R=R2,
+                                 t=jnp.matmul(R, x[3:], precision=HI))
                 p_new = apply_similarity(p, sim)
-                cov_p = pn @ R2.T
+                cov_p = jnp.matmul(pn, R2.T, precision=HI)
                 nw = jax.lax.psum(jnp.sum(w_eff), axis)
                 err = jax.lax.psum(
                     jnp.sum((jnp.sum(nsum * (p_new - y), axis=1)

@@ -16,7 +16,7 @@ import numpy as np
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="icp-slam", description="TPU-native multi-scan registration"
+        prog="icp-slam", description="multi-scan registration"
     )
     p.add_argument("clouds", nargs="+", help="scan CSVs, in chain order")
     p.add_argument("--max-iter", type=int, default=60)
@@ -48,9 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bucket", type=int, default=-1, metavar="QUANTUM",
                    help="static-shape bucketing: pad each pair's clouds to "
                         "the next QUANTUM multiple (true counts masked) so "
-                        "similar-size pairs share ONE compiled program — "
-                        "compiles dominate chain wall time on remote-compile "
-                        "backends (measured A/B in docs/PERF.md).  Default "
+                        "similar-size pairs share ONE compiled program.  "
+                        "Default "
                         "-1 = auto (ON for unequal-count chains, quantum "
                         "auto-sized); 0 = off; or give an explicit quantum")
     p.add_argument("--refine", action="store_true",
@@ -77,6 +76,9 @@ def main(argv=None) -> int:
         print("need at least 2 scans", file=sys.stderr)
         return -1
 
+    from icp_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from icp_tpu.config import ICPConfig

@@ -21,7 +21,7 @@ Two solvers, both jitted end-to-end:
     are accumulated per point and, in the sharded variant, reduced with a
     single ``psum`` over the points mesh axis before a replicated dense
     solve — the Schur-complement-style collective reduction of
-    SURVEY.md §5 (distributed comm backend) on TPU ICI.
+    SURVEY.md §5 (distributed comm backend).
 
 No counterpart exists in the reference (single-pair registration only).
 """
@@ -120,8 +120,9 @@ def _edge_r_and_J(theta_i, theta_j, R_meas, t_meas, weight):
         qi = th_i[:4] / jnp.linalg.norm(th_i[:4])
         qj = th_j[:4] / jnp.linalg.norm(th_j[:4])
         Ri, Rj = quat_to_rot(qi), quat_to_rot(qj)
-        r_rot = (Ri.T @ Rj - R_meas).reshape(-1)
-        r_t = Ri.T @ (th_j[4:7] - th_i[4:7]) - t_meas
+        hi = jax.lax.Precision.HIGHEST
+        r_rot = (jnp.matmul(Ri.T, Rj, precision=hi) - R_meas).reshape(-1)
+        r_t = jnp.matmul(Ri.T, th_j[4:7] - th_i[4:7], precision=hi) - t_meas
         return weight * jnp.concatenate([r_rot, r_t])
 
     local = jnp.concatenate([theta_i, theta_j])
@@ -158,8 +159,8 @@ def _optimize_jit(
             sw = jnp.sqrt(w_gm)
             r = sw[:, None] * r
             J = sw[:, None, None] * J
-        He = jnp.einsum("eri,erj->eij", J, J)  # (E, 14, 14)
-        ge = jnp.einsum("eri,er->ei", J, r)  # (E, 14)
+        He = jnp.einsum("eri,erj->eij", J, J, precision=jax.lax.Precision.HIGHEST)  # (E, 14, 14)
+        ge = jnp.einsum("eri,er->ei", J, r, precision=jax.lax.Precision.HIGHEST)  # (E, 14)
         H4 = jnp.zeros((n_poses, 7, n_poses, 7), dt)
         H4 = H4.at[edge_i, :, edge_i, :].add(He[:, :7, :7])
         H4 = H4.at[edge_i, :, edge_j, :].add(He[:, :7, 7:])
@@ -174,7 +175,7 @@ def _optimize_jit(
         qn = jnp.sum(q * q, axis=1) - 1.0  # (P,)
         Jq = jnp.pad(2.0 * q, ((0, 0), (0, 3)))  # (P, 7)
         H4 = H4.at[jnp.arange(n_poses), :, jnp.arange(n_poses), :].add(
-            jnp.einsum("pi,pj->pij", Jq, Jq)
+            jnp.einsum("pi,pj->pij", Jq, Jq, precision=jax.lax.Precision.HIGHEST)
         )
         g2 = g2 + qn[:, None] * Jq
         cost = cost + jnp.sum(qn * qn)
@@ -259,8 +260,9 @@ def _point_residual(flat_theta, n_poses, a, b, x, y):
     qa = qa / jnp.linalg.norm(qa)
     qb = theta[b, :4]
     qb = qb / jnp.linalg.norm(qb)
-    return (quat_to_rot(qa) @ x + theta[a, 4:7]) - (
-        quat_to_rot(qb) @ y + theta[b, 4:7]
+    hi = jax.lax.Precision.HIGHEST
+    return (jnp.matmul(quat_to_rot(qa), x, precision=hi) + theta[a, 4:7]) - (
+        jnp.matmul(quat_to_rot(qb), y, precision=hi) + theta[b, 4:7]
     )
 
 
@@ -278,8 +280,8 @@ def _ba_normal_terms(flat_theta, n_poses, a_ids, b_ids, xs, ys, w, axis):
     J = jax.vmap(jax.jacfwd(res_fn, argnums=0), in_axes=(None, 0, 0, 0, 0))(
         flat_theta, a_ids, b_ids, xs, ys
     )  # (N, 3, P)
-    H = jnp.einsum("n,nri,nrj->ij", w, J, J)
-    g = jnp.einsum("n,nri,nr->i", w, J, r)
+    H = jnp.einsum("n,nri,nrj->ij", w, J, J, precision=jax.lax.Precision.HIGHEST)
+    g = jnp.einsum("n,nri,nr->i", w, J, r, precision=jax.lax.Precision.HIGHEST)
     cost = jnp.sum(w * jnp.sum(r * r, axis=1))
     if axis is not None:
         H = jax.lax.psum(H, axis)

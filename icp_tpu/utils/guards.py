@@ -3,7 +3,7 @@
 The reference has no sanitizers or failure detection: CUDA return codes go
 unchecked and the few guarded errors ``exit()`` the process (SURVEY.md §5,
 reference ``src/load.cc:13``, ``src/cpu.cc:46-51``).  JAX is functional so
-data races cannot occur; the TPU-native equivalents are
+data races cannot occur; the equivalents here are
 
   * ``icp(guard="device")`` — a status word carried through the jitted
     while_loop aborts on non-finite/diverging error (``engine/icp.py``);
@@ -40,7 +40,7 @@ def checked_icp_step(
     def step(p, m):
         return icp_step(
             p, m, solver=solver, nn_method=nn_method, with_scale=with_scale,
-            reference_compat=True, scene_tile=256, model_tile=4096,
+            reference_compat=True, scene_tile=16, model_tile=64,
         )
 
     checked = checkify.checkify(

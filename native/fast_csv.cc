@@ -1,6 +1,6 @@
 // Native CSV point-cloud parser/writer for icp_tpu.
 //
-// TPU-native counterpart of the reference's C++ loader (reference
+// Counterpart of the reference's C++ loader (reference
 // src/load.cc:3-97): skip exactly one header row, take the first 3
 // comma-separated floats per line (extra columns ignored, unparsable fields
 // default to 0.0), write header "Points_0,Points_1,Points_2" + "%g" rows.

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Round-over-round perf regression gate (VERDICT r2 next-step #8).
+"""Perf regression gate between two benchmark artifacts.
 
 Compares two benchmark artifacts metric-by-metric and FAILS (exit 1) on any
 regression beyond the tolerance — perf claims become diffable artifacts, not
 prose.  Accepts either artifact format this repo produces:
 
   * harness JSONL: one ``{"benchmark": ..., "rate_per_s": ...}`` object per
-    line (``python -m icp_tpu.bench.harness > docs/perf/harness_rN.jsonl``)
-  * driver BENCH_rN.json: ``{"parsed": {"metric": ..., "value": ...}}``
+    line (``python -m icp_tpu.bench.harness > harness.jsonl``)
+  * a wrapped headline: ``{"parsed": {"metric": ..., "value": ...}}``
     (also accepts the bare ``{"metric": ..., "value": ...}`` line bench.py
     prints)
 

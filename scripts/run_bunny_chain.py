@@ -32,8 +32,8 @@ def main():
     cfg = ICPConfig(
         max_iter=60,
         dtype=jnp.float32,
-        solver="qcp_fused" if backend == "tpu" else "eigh",
-        nn_method="pallas" if backend == "tpu" else "bcast",
+        solver="auto",
+        nn_method="auto",
         with_scale=False,  # real scans: rigid
         validate_inputs=False,
     )
@@ -47,7 +47,7 @@ def main():
                           n_views=len(VIEWS), backend=backend,
                           subsample=sub)))
     np.savez(
-        "/tmp/bunny_poses.npz",
+        "bunny_poses.npz",
         s=np.stack([np.asarray(p.s) for p in poses]),
         R=np.stack([np.asarray(p.R) for p in poses]),
         t=np.stack([np.asarray(p.t) for p in poses]),

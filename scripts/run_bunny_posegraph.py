@@ -18,8 +18,7 @@ Usage: run_bunny_posegraph.py [subsample] [engine] [nn] [--auto] [--bucket[=Q]]
 
 ``--bucket`` (optionally ``--bucket=4096``) enables static-shape bucketing
 (``ops/padding.py``): every pair whose padded sizes land in the same bucket
-reuses one compiled program — per-shape remote compiles dominated the
-full-res chain's wall time (docs/PERF.md round 4).
+reuses one compiled program instead of compiling once per shape.
 """
 import json
 import os
@@ -75,8 +74,8 @@ def main():
     cfg = ICPConfig(
         max_iter=60,
         dtype=jnp.float32,
-        solver="qcp_fused" if backend == "tpu" else "eigh",
-        nn_method=nn or ("pallas" if backend == "tpu" else "bcast"),
+        solver="auto",
+        nn_method=nn or "auto",
         with_scale=False,
         validate_inputs=False,
         trim_fraction=0.3,

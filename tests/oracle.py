@@ -3,7 +3,7 @@
 This is a *behavioral specification* of reference ``src/cpu.cc`` (brute-force
 NN with sqrt distances and lowest-index ties; Horn similarity solve including
 the q_bar/q_caps quaternion-to-rotation construction; QUIRK-1 double-counted
-error) used to validate the TPU implementation.  Deliberately naive and
+error) used to validate the JAX implementation.  Deliberately naive and
 readable; layout is (N, 3) rows = points (the reference is 3xN columns).
 """
 

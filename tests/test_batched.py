@@ -25,11 +25,12 @@ def test_batched_matches_per_pair(rng):
     assert (np.asarray(res.err) < 1e-5).all()
 
 
-def test_batched_pallas_fused_path(rng):
+def test_batched_pallas_path(rng):
+    # the dense Triton kernel under vmap (interpret mode on CPU)
     models, scenes = _pairs(rng)
     res = icp_batched(
         jnp.asarray(models), jnp.asarray(scenes), n_iters=20,
-        solver="qcp_fused", nn_method="pallas",
+        solver="qcp", nn_method="pallas",
     )
     np.testing.assert_allclose(np.asarray(res.points), models, atol=5e-5)
 

@@ -3,9 +3,8 @@ real-noise workload the reference cannot run at all — its validation rejects
 unequal point counts, ``src/cpu.cc:42-53``).
 
 Marked slow: registers a subsampled 5-view chain + loop closure + pose-graph
-optimization on the CPU backend and pins the drift-reduction numbers from
-docs/PERF.md (closure drift rot 1.91 -> 0.54, trans 0.200 -> 0.027 at
-subsample 4; thresholds here are for the heavier test subsample).
+optimization on the CPU backend and pins the drift reduction the closures
+buy (thresholds here are for the heavier test subsample).
 """
 
 import os

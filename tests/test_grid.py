@@ -51,14 +51,16 @@ def test_pruned_matches_oracle_with_fallback(rng, n, m):
     model = _sphere(m, seed=1)
     scene = _sphere(n, seed=2) * 1.02 + np.float32([0.01, -0.02, 0.005])
     grid = build_model_grid(jnp.asarray(model), target_tile=128)
-    prev = initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=8)
+    prev = initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=8,
+                                 interpret=True)
     u = bound_from_indices(jnp.asarray(scene), grid, prev)
     idx, y, _, d2 = closest_point_indices_grid(
-        jnp.asarray(scene), grid, u, scene_tile=64, max_candidates=16
+        jnp.asarray(scene), grid, u, scene_tile=64, max_candidates=16,
+        interpret=True,
     )
     want = _oracle_nn(scene, model)
     np.testing.assert_array_equal(np.asarray(idx), want)
-    # kernel-emitted matched points == gathered winners
+    # matched points == gathered winners
     np.testing.assert_array_equal(np.asarray(y), model[want])
     np.testing.assert_allclose(
         np.asarray(d2), np.sum((scene - model[want]) ** 2, axis=1), rtol=1e-5
@@ -80,7 +82,7 @@ def test_pruned_exact_when_not_overflowing(rng):
         jnp.asarray(s), grid, jnp.asarray(oracle[perm], jnp.int32)
     )
     idx, y, _, _, overflow = closest_point_indices_pruned(
-        jnp.asarray(s), grid, u, scene_tile=125, max_candidates=16,
+        jnp.asarray(s), grid, u, scene_tile=125, max_candidates=16, interpret=True,
     )
     assert not bool(overflow), "expected no overflow with tight bounds"
     np.testing.assert_array_equal(np.asarray(idx), oracle[perm])
@@ -94,10 +96,12 @@ def test_pruned_tie_break_lowest_original_index(rng):
     model = np.concatenate([base, base], axis=0)  # every point duplicated
     scene = base[:100]
     grid = build_model_grid(jnp.asarray(model), target_tile=128)
-    prev = initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=4)
+    prev = initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=4,
+                                 interpret=True)
     u = bound_from_indices(jnp.asarray(scene), grid, prev)
     idx, _, _, _ = closest_point_indices_grid(
-        jnp.asarray(scene), grid, u, scene_tile=32, max_candidates=32
+        jnp.asarray(scene), grid, u, scene_tile=32, max_candidates=32,
+        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(idx), _oracle_nn(scene, model))
 
@@ -149,18 +153,20 @@ def test_icp_grid_matches_dense_trace(cow_pair):
 
 
 def test_payload_emission_matches_gather(rng):
-    # normals packed in spare sublanes: kernel-emitted winning payload must
-    # equal an explicit gather by the winning index, through both the pruned
-    # path and the overflow (fold-everything) path
+    # normals packed as grid payload: the winning payload must equal an
+    # explicit gather by the winning index, through both the pruned path
+    # and the overflow (fold-everything) path
     model = _sphere(700, seed=9)
     payload = rng.standard_normal((700, 3)).astype(np.float32)
     scene = _sphere(300, seed=10) * 1.01
     grid = build_model_grid(jnp.asarray(model), target_tile=128,
                             payload=jnp.asarray(payload))
-    prev = initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=8)
+    prev = initial_bound_indices(jnp.asarray(scene), jnp.asarray(model), stride=8,
+                                 interpret=True)
     u = bound_from_indices(jnp.asarray(scene), grid, prev)
     idx, y, pl, d2 = closest_point_indices_grid(
-        jnp.asarray(scene), grid, u, scene_tile=64, max_candidates=16
+        jnp.asarray(scene), grid, u, scene_tile=64, max_candidates=16,
+        interpret=True,
     )
     want = _oracle_nn(scene, model)
     np.testing.assert_array_equal(np.asarray(idx), want)
@@ -168,7 +174,7 @@ def test_payload_emission_matches_gather(rng):
     # force the overflow path: infinite bounds + cap=1
     idx2, y2, pl2, _ = closest_point_indices_grid(
         jnp.asarray(scene), grid, jnp.full((300,), 3.0e38, jnp.float32),
-        scene_tile=64, max_candidates=1,
+        scene_tile=64, max_candidates=1, interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(idx2), want)
     np.testing.assert_array_equal(np.asarray(pl2), payload[want])

@@ -38,7 +38,7 @@ def test_horse_trace_matches_oracle(horse_small):
 
 
 def test_horse_f32_matches_f64_plateau(horse_small):
-    """The f32 TPU-numerics path must land on the same plateau as f64."""
+    """The f32 fast path must land on the same plateau as f64."""
     ref, tr1 = horse_small
     cfg64 = ICPConfig(max_iter=25, dtype=jnp.float64, solver="eigh", nn_method="bcast")
     cfg32 = ICPConfig(max_iter=25, dtype=jnp.float32, solver="qcp", nn_method="bcast")

@@ -45,7 +45,7 @@ def test_while_loop_matches_trace(cow_small):
 
 @pytest.mark.parametrize("solver", ["eigh", "qcp"])
 def test_f32_fast_path_converges(cow_small, solver):
-    """The TPU numerics policy (f32 compute) must still converge within the
+    """The f32 numerics policy must still converge within the
     reference threshold on the exact-transform cow pair."""
     ref, tr1 = cow_small
     cfg = ICPConfig(max_iter=30, dtype=jnp.float32, solver=solver, nn_method="bcast")

@@ -1,10 +1,12 @@
-"""kNN Pallas kernel: oracle parity, ties, ragged shapes (SURVEY.md §4b)."""
+"""Exact kNN in plain XLA (``ops/knn.py``): oracle parity, ties, ragged
+shapes, the kd-grid path and its overflow fallback (SURVEY.md §4b)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from icp_tpu.kernels.knn_pallas import knn_pallas
+from icp_tpu.kernels.nn_grid import build_model_grid
+from icp_tpu.ops.knn import _topk_lex, knn, knn_dense, knn_grid
 
 
 def _oracle_knn(query, points, k):
@@ -18,18 +20,18 @@ def _oracle_knn(query, points, k):
 def test_knn_matches_oracle(rng, n, m, k):
     q = rng.standard_normal((n, 3)).astype(np.float32)
     p = rng.standard_normal((m, 3)).astype(np.float32)
-    d2, idx = knn_pallas(q, p, k, query_tile=64, point_tile=128)
+    d2, idx = knn_dense(q, p, k)
     od2, oidx = _oracle_knn(q, p, k)
     np.testing.assert_array_equal(np.asarray(idx), oidx)
     np.testing.assert_allclose(np.asarray(d2), od2, rtol=1e-5, atol=1e-6)
 
 
 def test_knn_tie_breaks_to_lowest_index(rng):
-    # duplicate points across tile boundaries: ties must pick lowest index
+    # duplicate points: ties must pick the lowest index
     base = rng.standard_normal((40, 3)).astype(np.float32)
     p = np.concatenate([base, base[::-1]], axis=0)  # every point duplicated
     q = base[:16] + 1e-8
-    d2, idx = knn_pallas(q, p, 4, query_tile=8, point_tile=128)
+    d2, idx = knn_dense(q, p, 4)
     od2, oidx = _oracle_knn(q, p, 4)
     np.testing.assert_array_equal(np.asarray(idx), oidx)
 
@@ -37,21 +39,37 @@ def test_knn_tie_breaks_to_lowest_index(rng):
 def test_knn_self_query(rng):
     # query == points: nearest neighbor of each point is itself (d2 = 0)
     p = rng.standard_normal((70, 3)).astype(np.float32)
-    d2, idx = knn_pallas(p, p, 3, query_tile=16, point_tile=128)
+    d2, idx = knn_dense(p, p, 3)
     np.testing.assert_array_equal(np.asarray(idx)[:, 0], np.arange(70))
     np.testing.assert_allclose(np.asarray(d2)[:, 0], 0.0)
 
 
-def test_knn_k_exceeds_points_raises(rng):
+@pytest.mark.parametrize("method", ["dense", "grid"])
+def test_knn_k_exceeds_points_raises(rng, method):
     p = rng.standard_normal((5, 3)).astype(np.float32)
     with pytest.raises(ValueError):
-        knn_pallas(p, p, 6)
+        knn(jnp.asarray(p), 6, method=method)
 
 
-def test_normals_use_knn_kernel(rng):
+def test_topk_lex_orders_ties_by_index(rng):
+    # positions deliberately NOT in index order: ties at the k-th distance
+    # must still go to the lowest indices, and the output be lexicographic
+    d = np.array([[3.0, 1.0, 2.0, 1.0, 2.0, 2.0, 5.0]], np.float32)
+    gi = np.array([[9, 7, 6, 2, 4, 1, 0]], np.int32)
+    out_d, out_i = _topk_lex(jnp.asarray(d), jnp.asarray(gi), 4)
+    np.testing.assert_array_equal(np.asarray(out_i), [[2, 7, 1, 4]])
+    np.testing.assert_array_equal(np.asarray(out_d), [[1.0, 1.0, 2.0, 2.0]])
+    # random rows vs a lexsort oracle
+    d = rng.integers(0, 4, (20, 30)).astype(np.float32)
+    gi = np.stack([rng.permutation(30) for _ in range(20)]).astype(np.int32)
+    out_d, out_i = _topk_lex(jnp.asarray(d), jnp.asarray(gi), 7)
+    for r in range(20):
+        order = np.lexsort((gi[r], d[r]))[:7]
+        np.testing.assert_array_equal(np.asarray(out_i)[r], gi[r][order])
+
+
+def test_normals_use_knn(rng):
     """estimate_normals on a noisy plane recovers the plane normal."""
-    import jax.numpy as jnp
-
     from icp_tpu.ops.normals import estimate_normals
 
     xy = rng.uniform(-1, 1, (300, 2))
@@ -60,51 +78,49 @@ def test_normals_use_knn_kernel(rng):
     assert np.all(np.abs(n[:, 2]) > 0.99)
 
 
-def test_knn_grid_matches_dense(rng):
-    from icp_tpu.kernels.knn_grid import knn_grid
-    from icp_tpu.kernels.nn_grid import build_model_grid
+def _sphere(n, seed):
+    r = np.random.default_rng(seed)
+    v = r.standard_normal((n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return (v + 0.01 * r.standard_normal((n, 3))).astype(np.float32)
 
-    pts = rng.standard_normal((1500, 3)).astype(np.float32)
-    query = rng.standard_normal((700, 3)).astype(np.float32) * 0.9
+
+def test_knn_grid_matches_dense(rng):
+    pts = _sphere(900, 0)
+    q = jnp.asarray(_sphere(300, 1))
     grid = build_model_grid(jnp.asarray(pts), target_tile=128)
-    q = jnp.asarray(query)
     d_g, i_g = knn_grid(q, grid, 8, scene_tile=64, max_candidates=16)
-    d_d, i_d = knn_pallas(q, jnp.asarray(pts), 8)
+    d_d, i_d = knn_dense(q, jnp.asarray(pts), 8)
     np.testing.assert_array_equal(np.asarray(i_g), np.asarray(i_d))
     np.testing.assert_allclose(np.asarray(d_g), np.asarray(d_d), rtol=1e-6)
 
 
 def test_knn_grid_tie_break(rng):
-    from icp_tpu.kernels.knn_grid import knn_grid
-    from icp_tpu.kernels.nn_grid import build_model_grid
-
-    base = rng.standard_normal((300, 3)).astype(np.float32)
-    pts = np.concatenate([base, base], axis=0)  # exact duplicates
-    grid = build_model_grid(jnp.asarray(pts), target_tile=128)
-    q = jnp.asarray(base[:64])
+    base = _sphere(200, 2)
+    pts = np.concatenate([base, base[::-1]], axis=0)  # duplicates far apart
+    q = jnp.asarray(base[:100])
+    grid = build_model_grid(jnp.asarray(pts), target_tile=64)
     d_g, i_g = knn_grid(q, grid, 6, scene_tile=32, max_candidates=32)
-    d_d, i_d = knn_pallas(q, jnp.asarray(pts), 6)
+    d_d, i_d = knn_dense(q, jnp.asarray(pts), 6)
     np.testing.assert_array_equal(np.asarray(i_g), np.asarray(i_d))
 
 
 def test_knn_grid_overflow_falls_back_dense(rng):
-    from icp_tpu.kernels.knn_grid import knn_grid
-    from icp_tpu.kernels.nn_grid import build_model_grid
-
-    pts = rng.standard_normal((600, 3)).astype(np.float32)
-    grid = build_model_grid(jnp.asarray(pts), target_tile=128)
-    q = jnp.asarray(rng.standard_normal((100, 3)).astype(np.float32))
-    # cap=1 guarantees phase-2 overflow -> per-tile fold-everything path
+    # capacity 1 forces the whole-model pass on (almost) every tile
+    pts = _sphere(600, 3)
+    q = jnp.asarray(_sphere(200, 4))
+    grid = build_model_grid(jnp.asarray(pts), target_tile=64)
     d_g, i_g = knn_grid(q, grid, 5, scene_tile=32, max_candidates=1)
-    d_d, i_d = knn_pallas(q, jnp.asarray(pts), 5)
+    d_d, i_d = knn_dense(q, jnp.asarray(pts), 5)
     np.testing.assert_array_equal(np.asarray(i_g), np.asarray(i_d))
+    np.testing.assert_allclose(np.asarray(d_g), np.asarray(d_d), rtol=1e-6)
 
 
-def test_estimate_normals_grid_matches_dense(rng):
-    from icp_tpu.ops.normals import estimate_normals
-
-    pts = rng.standard_normal((900, 3)).astype(np.float32)
-    a = np.asarray(estimate_normals(jnp.asarray(pts), k=12, method="dense"))
-    b = np.asarray(estimate_normals(jnp.asarray(pts), k=12, method="grid"))
-    # same neighbor sets -> same covariances -> same normals (sign-exact)
-    np.testing.assert_allclose(a, b, atol=1e-6)
+def test_knn_grid_rows_in_caller_order(rng):
+    # the grid path kd-sorts the queries internally; rows must come back
+    # in the caller's order with the same answer as the dense path
+    pts = jnp.asarray(_sphere(700, 5))
+    d_g, i_g = knn(pts, 7, method="grid", scene_tile=32, model_tile=64)
+    d_d, i_d = knn(pts, 7, method="dense")
+    np.testing.assert_array_equal(np.asarray(i_g), np.asarray(i_d))
+    np.testing.assert_array_equal(np.asarray(i_g)[:, 0], np.arange(700))

@@ -294,23 +294,28 @@ def test_grid_trimmed_ignores_outliers():
     assert np.median(dev) < 1e-3
 
 
-def test_bf16_prefilter_passthrough():
-    """ADVICE r3: an explicit nn_method="bf16" must reach the approximate
-    MXU prefilter (via closest_point_indices), not be silently remapped —
-    on an exact-transform problem it still registers."""
+def test_explicit_nn_method_passthrough():
+    """An explicit nn_method (here the plain XLA ``blocked`` fold) must
+    reach ``closest_point_indices`` and not be silently remapped — on an
+    exact-transform problem it registers exactly like ``bcast``."""
     from icp_tpu import ICPConfig, icp_symmetric
 
     rng = np.random.default_rng(43)
     model = _surface(rng, n=500)
     R, t = _rigid(rng, 0.1)
     scene = model @ R.T + t
-    cfg = ICPConfig(max_iter=40, threshold=1e-10, nn_method="bf16",
-                    validate_inputs=False)
-    res = icp_symmetric(np.asarray(model, np.float32),
-                        np.asarray(scene, np.float32), cfg)
-    dev = np.linalg.norm(np.asarray(res.points) - model.astype(np.float32),
-                         axis=1)
+    out = {}
+    for nn in ("blocked", "bcast"):
+        cfg = ICPConfig(max_iter=40, threshold=1e-10, nn_method=nn,
+                        validate_inputs=False)
+        out[nn] = icp_symmetric(np.asarray(model, np.float32),
+                                np.asarray(scene, np.float32), cfg)
+    dev = np.linalg.norm(np.asarray(out["blocked"].points)
+                         - model.astype(np.float32), axis=1)
     assert np.median(dev) < 1e-2
+    assert int(out["blocked"].iters) == int(out["bcast"].iters)
+    np.testing.assert_allclose(np.asarray(out["blocked"].points),
+                               np.asarray(out["bcast"].points), atol=1e-5)
 
 
 def test_sharded_grid_matches_single_grid():

@@ -49,10 +49,10 @@ def test_trim_zero_is_bitwise_reference_path(cow_pair):
     np.testing.assert_array_equal(np.asarray(a.errs), np.asarray(b.errs))
 
 
-def test_trimmed_fused_path_interpret(cow_pair, rng):
-    """Trimming works through the fused pallas/qcp_fused path too."""
+def test_trimmed_pallas_path_interpret(cow_pair, rng):
+    """Trimming works through the dense kernel + qcp path too."""
     world, scene, R, t = _make_outlier_problem(np.random.default_rng(11), n=256, n_out=40)
-    cfg = ICPConfig(max_iter=60, dtype=jnp.float32, solver="qcp_fused",
+    cfg = ICPConfig(max_iter=60, dtype=jnp.float32, solver="qcp",
                     nn_method="pallas", with_scale=False,
                     validate_inputs=False, trim_fraction=0.3)
     res = icp(world, scene, cfg)
